@@ -1,10 +1,10 @@
-"""psgd_tf_tpu — a TPU-native PSGD (Preconditioned SGD) framework.
+"""psgd_tf_tpu — a JAX PSGD (Preconditioned SGD) framework.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-TensorFlow implementation (lixilinx/psgd_tf), redesigned TPU-first:
-pure-functional pytree state, static-shape compiled steps, Pallas fast
-paths for the hot structured linear algebra, and mesh sharding for the
-preconditioner state.
+Built from scratch in JAX/XLA with the capabilities of the reference
+TensorFlow implementation (lixilinx/psgd_tf): pure-functional pytree
+state, static-shape compiled steps, O(n^2) and O(n r) formulations of the
+structured linear algebra, and mesh sharding for the preconditioner
+state. It runs on an NVIDIA GPU (and on the CPU for tests).
 
 Public surface:
   - groups.{dense,diag,xmat,shift,splu,kron,lra}: preconditioner families

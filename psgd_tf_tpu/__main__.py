@@ -13,6 +13,7 @@ import json
 import sys
 
 from psgd_tf_tpu import config as config_mod
+from psgd_tf_tpu.utils import compile_cache
 
 WORKLOADS = [
     "hello_psgd",
@@ -48,11 +49,11 @@ def main(argv=None):
             print(f"{name}: {json.dumps(config_mod.schema(mod.run), default=str)}")
         return 0
 
+    compile_cache.enable()
     if args.cmd == "bench":
         import bench  # repo-root harness
 
-        bench.main()
-        return 0
+        return bench.main()
 
     mod = importlib.import_module(f"psgd_tf_tpu.workloads.{args.workload}")
     kwargs = config_mod.load(mod.run, args.config, args.set)

@@ -1,6 +1,6 @@
 // Native host-side data pipeline: idx decoding and batch assembly.
 //
-// The TPU compute path is JAX/XLA/Pallas; this is the host runtime around
+// The device compute path is JAX/XLA; this is the host runtime around
 // it. Training at high step rates (bench.py: thousands of steps/sec) makes
 // the Python-side batch gather the serial bottleneck for real-dataset
 // training, so the hot host loop — uniform sampling + row gather +
@@ -11,7 +11,7 @@
 // Reference parity note: the reference's data handling is keras downloads
 // plus numpy shuffling in the training loop
 // (/root/reference/mnist_with_lenet5.py:36-41,66-72); this replaces it for
-// hermetic, multi-epoch TPU feeding.
+// hermetic, multi-epoch device feeding.
 
 #include <cstdint>
 #include <cstdio>

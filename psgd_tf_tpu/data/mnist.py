@@ -3,16 +3,16 @@
 Two sources behind one (images, labels) contract:
 
   - `load_idx(dir)` reads the real MNIST idx files when a local copy exists
-    (the reference pulls MNIST through keras,
-    /root/reference/mnist_with_lenet5.py:36-41; hermetic TPU pods have no
-    egress, so the files must be pre-staged).
+    (the reference pulls MNIST through keras, ref
+    mnist_with_lenet5.py:36-41; hermetic machines have no egress, so the
+    files must be pre-staged).
   - `synthetic(key, n)` procedurally renders digits from glyph bitmaps with
     random shift / amplitude / noise augmentation — a drop-in, fully
     deterministic stand-in that a LeNet5 must still learn conv features
     for. Used by the workload suite and benchmarks.
 
 Both return images in (n, 28, 28, 1) float32 in [0, 1] and int32 labels,
-the NHWC layout XLA:TPU natively tiles.
+the NHWC layout the models use.
 """
 from __future__ import annotations
 

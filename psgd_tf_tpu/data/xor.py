@@ -8,7 +8,7 @@ The label is -1 if the ±1 values at the two marked positions agree, else +1
 — the XOR — solvable only by carrying information across O(T) steps, the
 classic long-memory stress test (ref README.md:46).
 
-TPU-native design: the generator is a pure jittable function of a PRNG key
+Design: the generator is a pure jittable function of a PRNG key
 producing the whole batch at once in (batch, T, 2) layout (the reference
 builds (T, batch, 2) with Python loops over numpy, ref :17-27, because its
 model scans with a Python `for`); marker positions are sampled with

@@ -18,8 +18,8 @@ flip, a pure reshape for shift) and in which index (if any) is the
 σ-fixed "center" carried as a scalar.
 
 All functions below take folded (2, m) rows plus the optional center and
-do pure fusable VPU elementwise work — zero data reversals (see
-groups/xmat.py for the measured cost of reversal passes).
+do pure fusable elementwise work — zero data reversals (see
+groups/xmat.py).
 
 Derivation on a folded pair, writing (a0, a1) = (a_i, a_{σ(i)}):
   Q x        : y0 = a0·x0 + b0·x1,  y1 = a1·x1 + b1·x0

@@ -8,22 +8,21 @@ Math contract (reference parity: update_precond_dense / precond_grad_dense,
   Q <- Q - (step / (max|grad| + tiny)) * grad @ Q
   P g = Q^T (Q g)
 
-TPU-native formulation: with vector probes the group gradient is rank-2, so
-`grad @ Q` is computed in O(n^2) via reverse cumulative sums
+With vector probes the group gradient is rank-2, so `grad @ Q` is
+computed in O(n^2) via reverse cumulative sums
 (`ops.linalg.triu_outer_diff_matmul`) instead of the reference's O(n^3)
-dense matmul chain — the asymptotic win that sets this framework's dense
-nnz/s headroom.
+dense matmul chain.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.ops import linalg
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class DenseState:
     Q: jax.Array  # (n, n) upper triangular
 
@@ -40,94 +39,15 @@ def update(
     step: jax.Array | float = 0.01,
     key: jax.Array | None = None,
 ) -> DenseState:
-    """One Lie-group step fitting Q to the curvature pair (v, h).
-
-    On TPU backends with n within the VMEM cap, the whole update runs as
-    one fused Pallas launch (ops/pallas/dense_upd.py); elsewhere the XLA
-    path below (rank-2 cumsum formulation, O(n^2)) applies.
-    """
+    """One Lie-group step fitting Q to the curvature pair (v, h) in
+    O(n^2) (rank-2 cumsum formulation)."""
     del key  # deterministic family
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
     q = state.Q
-    n = q.shape[0]
-    if pallas_ops.kernels_active() and q.dtype == jnp.float32:
-        # fp32-only kernels; the XLA path below serves half precision
-        # (ref Note 3)
-        if n <= pallas_ops.dense_upd.MAX_N:
-            # single-launch, Q VMEM-resident. Under a mesh, Q at this size
-            # is replicated by policy (parallel/policies.py), so the kernel
-            # runs per-device via the all-replicated shard_map wrap.
-            new_q = pallas_ops.replicated_call(
-                lambda *a: pallas_ops.dense_upd.fused_update(
-                    *a, linalg.tiny(q.dtype),
-                    interpret=pallas_ops.interpret_default(),
-                ),
-                q, v, h, step,
-            )
-            return DenseState(Q=new_q)
-        if n <= pallas_ops.dense_big.MAX_N:
-            # gridded HBM-streaming stages (ops/pallas/dense_big.py) up to
-            # the reference's ~1e4-param dense capacity (README.md:54);
-            # Q replicates on a mesh (parallel/policies.py), so the kernel
-            # runs per-device exactly like the single-launch one
-            new_q = pallas_ops.replicated_call(
-                lambda *a: pallas_ops.dense_big.fused_update(
-                    *a, linalg.tiny(q.dtype),
-                    interpret=pallas_ops.interpret_default(),
-                ),
-                q, v, h, step,
-            )
-            return DenseState(Q=new_q)
     a = q @ h
     b = linalg.solve_ut_t(q, v)
     step0 = linalg.step_scale(step, linalg.triu_outer_diff_maxabs(a, b), q.dtype)
     grad_q = linalg.triu_outer_diff_matmul(a, b, q)
     return DenseState(Q=q - step0 * grad_q)
-
-
-def update_apply(
-    state: DenseState,
-    v: jax.Array,
-    h: jax.Array,
-    g: jax.Array,
-    step: jax.Array | float = 0.01,
-    key: jax.Array | None = None,
-) -> tuple[DenseState, jax.Array]:
-    """update() followed by apply() of the UPDATED Q, fused on TPU.
-
-    The gridded kernel folds P' g into the update's final Q sweep
-    (dense_big.fused_update_apply: 2 reads + 1 write of Q total, vs 6
-    Q-traffics for the separate calls); the VMEM-resident kernel computes
-    it in the same launch. Reference sequencing parity: the demos update
-    Q then precondition with the NEW Q (ref mnist_with_lenet5.py:51-53).
-    """
-    del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    q = state.Q
-    n = q.shape[0]
-    if pallas_ops.kernels_active() and q.dtype == jnp.float32:
-        if n <= pallas_ops.dense_upd.MAX_N:
-            new_q, pre = pallas_ops.replicated_call(
-                lambda *a: pallas_ops.dense_upd.fused_update_apply(
-                    *a, linalg.tiny(q.dtype),
-                    interpret=pallas_ops.interpret_default(),
-                ),
-                q, v, h, g, step,
-            )
-            return DenseState(Q=new_q), pre
-        if n <= pallas_ops.dense_big.MAX_N:
-            new_q, pre = pallas_ops.replicated_call(
-                lambda *a: pallas_ops.dense_big.fused_update_apply(
-                    *a, linalg.tiny(q.dtype),
-                    interpret=pallas_ops.interpret_default(),
-                ),
-                q, v, h, g, step,
-            )
-            return DenseState(Q=new_q), pre
-    st = update(state, v, h, step=step)
-    return st, apply(st, g)
 
 
 def apply(state: DenseState, g: jax.Array) -> jax.Array:

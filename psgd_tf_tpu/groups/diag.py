@@ -16,19 +16,19 @@ E[(q h)^2 + (v/q)^2] is minimized elementwise by q* = (v^2 / h^2)^(1/4);
 `closed_form_update` moves q toward q* by a multiplicative interpolation,
 which is unconditionally stable.
 
-All ops are pure VPU elementwise work — O(n) state and compute, the
+All ops are pure elementwise work — O(n) state and compute, the
 cheapest family and the usual large-model default.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.ops import linalg
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class DiagState:
     q: jax.Array  # (n,) positive
 

@@ -12,7 +12,7 @@ Reference parity: update_precond_kron / precond_grad_kron and the six
 _update/_precond_grad_{dense,norm,scale} pair kernels,
 /root/reference/preconditioned_stochastic_gradient_descent.py:67-391.
 
-Design change for TPU: the reference dispatches on *runtime* tensor shapes
+Design change: the reference dispatches on *runtime* tensor shapes
 inside a tf.function with [None, None] signatures (ref :80-110) — ambiguous
 at d = 2 (ref README.md:39) and untraceable under jax.jit. Here the format
 pair is a *static* tag carried in the state pytree's aux data, so dispatch
@@ -30,34 +30,27 @@ from __future__ import annotations
 
 from typing import Literal, Sequence
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.ops import linalg
 
 Format = Literal["dense", "norm", "scale"]
 
-# fmt -> (canonical kind, mirrored); mirrors transpose in per
-# ref :86, :102, :104 — the single source for update_multi's and
-# route()'s dispatch (update()'s elif chain must stay in sync)
-_CANON = {
-    ("dense", "dense"): ("dd", False),
-    ("norm", "dense"): ("nd", False),
-    ("dense", "norm"): ("nd", True),
-    ("dense", "scale"): ("ds", False),
-    ("scale", "dense"): ("ds", True),
-    ("norm", "scale"): ("ns", False),
-    ("scale", "norm"): ("ns", True),
+_SUPPORTED = {
+    ("dense", "dense"),
+    ("norm", "dense"), ("dense", "norm"),
+    ("dense", "scale"), ("scale", "dense"),
+    ("norm", "scale"), ("scale", "norm"),
 }
-_SUPPORTED = set(_CANON)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class KronState:
     ql: jax.Array
     qr: jax.Array
-    fmt: tuple[Format, Format] = flax.struct.field(pytree_node=False, default=("dense", "dense"))
+    fmt: tuple[Format, Format] = struct.field(static=True, default=("dense", "dense"))
 
 
 def _factor_init(fmt: Format, d: int, scale: float, dtype) -> jax.Array:
@@ -253,42 +246,24 @@ def update(
     key: jax.Array | None = None,
 ) -> KronState:
     del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
     ql, qr, fmt = state.ql, state.qr, state.fmt
     t = linalg.tiny(jnp.result_type(ql))
     s = jnp.asarray(step, jnp.result_type(ql))
 
     if fmt == ("dense", "dense"):
-        if (
-            pallas_ops.kernels_active()
-            and jnp.result_type(ql) == jnp.float32  # kernel is fp32-only
-            and max(dX.shape) <= pallas_ops.kron_dd.MAX_SIDE
-        ):
-            # fused one-launch TPU kernel (ops/pallas/kron_dd.py). Under a
-            # mesh the factors are replicated by policy, so the kernel runs
-            # per-device via the all-replicated shard_map wrap (interpreted
-            # off-TPU, i.e. on the virtual CPU test mesh).
-            ql, qr = pallas_ops.replicated_call(
-                lambda *a: pallas_ops.kron_dd.fused_update(
-                    *a, t, interpret=pallas_ops.interpret_default()
-                ),
-                ql, qr, dX, dG, s,
-            )
-        else:
-            ql, qr = _update_dd(ql, qr, dX, dG, s, t)
+        ql, qr = _update_dd(ql, qr, dX, dG, s, t)
     elif fmt == ("norm", "dense"):
-        ql, qr = _sparse_dispatch("nd", _update_nd, ql, qr, dX, dG, s, t)
+        ql, qr = _update_nd(ql, qr, dX, dG, s, t)
     elif fmt == ("dense", "norm"):      # mirror of (norm, dense), ref :86
-        qr, ql = _sparse_dispatch("nd", _update_nd, qr, ql, dX.T, dG.T, s, t)
+        qr, ql = _update_nd(qr, ql, dX.T, dG.T, s, t)
     elif fmt == ("dense", "scale"):
-        ql, qr = _sparse_dispatch("ds", _update_ds, ql, qr, dX, dG, s, t)
+        ql, qr = _update_ds(ql, qr, dX, dG, s, t)
     elif fmt == ("scale", "dense"):     # mirror of (dense, scale), ref :102
-        qr, ql = _sparse_dispatch("ds", _update_ds, qr, ql, dX.T, dG.T, s, t)
+        qr, ql = _update_ds(qr, ql, dX.T, dG.T, s, t)
     elif fmt == ("norm", "scale"):
-        ql, qr = _sparse_dispatch("ns", _update_ns, ql, qr, dX, dG, s, t)
+        ql, qr = _update_ns(ql, qr, dX, dG, s, t)
     elif fmt == ("scale", "norm"):      # mirror of (norm, scale), ref :104
-        qr, ql = _sparse_dispatch("ns", _update_ns, qr, ql, dX.T, dG.T, s, t)
+        qr, ql = _update_ns(qr, ql, dX.T, dG.T, s, t)
     else:
         raise ValueError(f"unsupported Kronecker format pair: {fmt}")
     return state.replace(ql=ql, qr=qr)
@@ -301,156 +276,15 @@ def update_multi(
     step: jax.Array | float = 0.01,
     key: jax.Array | None = None,
 ) -> list[KronState]:
-    """Element-wise `update` over a layer list, with every eligible member
-    — ANY supported format pair — updated in ONE fused launch.
-
-    Per-layer launches serialize their latency chains (each fused update
-    is tens of dependent MXU ops); the heterogeneous multi kernel
-    (ops/pallas/kron_multi.py) emits all layers in one launch and hoists
-    every diagonal-block inversion across ALL layers into a single batched
-    Newton chain (measured 1.7x on LeNet5's dd-only zoo; NMT's mixed zoo
-    gains the same structure). Mirror formats transpose in here, exactly
-    as `update` does. Identical per-layer numerics to `update`; non-fp32 /
-    oversized layers fall through to `update` unchanged."""
+    """Element-wise `update` over a layer list (the optimizer's per-layer
+    path)."""
     del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops
-    from psgd_tf_tpu.ops.pallas import kron_multi, kron_sparse
-
-    states = list(states)
     if not (len(states) == len(dXs) == len(dGs)):
         raise ValueError("states/dXs/dGs length mismatch")
-
-    canon = _CANON
-
-    eligible: list[int] = []
-    entries: list[tuple] = []  # (kind, mirrored, a, b, dx, dg)
-    if pallas_ops.kernels_active():
-        for i, st in enumerate(states):
-            if jnp.result_type(st.ql) != jnp.float32:
-                continue
-            kind, mirrored = canon[st.fmt]
-            a, b = (st.qr, st.ql) if mirrored else (st.ql, st.qr)
-            dx = dXs[i].T if mirrored else dXs[i]
-            dg = dGs[i].T if mirrored else dGs[i]
-            if kind == "dd":
-                ok = max(dx.shape) <= pallas_ops.kron_dd.MAX_SIDE
-            else:
-                ok = kron_sparse.fits(*dx.shape)
-            if ok:
-                eligible.append(i)
-                entries.append((kind, mirrored, a, b, dx, dg))
-
-    out: list = [None] * len(states)
-    if len(eligible) >= 2:
-        t = linalg.tiny(jnp.float32)
-        s = jnp.asarray(step, jnp.float32)
-        kinds = tuple(e[0] for e in entries)
-        res = pallas_ops.replicated_call(
-            lambda qls, qrs, xs, gs, sv: kron_multi.fused_update_multi(
-                kinds, qls, qrs, xs, gs, sv, t,
-                interpret=pallas_ops.interpret_default(),
-            ),
-            tuple(e[2] for e in entries),
-            tuple(e[3] for e in entries),
-            tuple(e[4] for e in entries),
-            tuple(e[5] for e in entries),
-            s,
-        )
-        for (kind, mirrored, *_), i, (na, nb) in zip(entries, eligible, res):
-            ql, qr = (nb, na) if mirrored else (na, nb)
-            out[i] = states[i].replace(ql=ql, qr=qr)
-    for i in range(len(states)):
-        if out[i] is None:
-            out[i] = update(states[i], dXs[i], dGs[i], step)
-    return out
-
-
-def _sparse_dispatch(kind, xla_fn, a, b, dX, dG, s, t):
-    """Route a sparse-format pair update to its fused kernel when active:
-    one-launch VMEM-resident (ops/pallas/kron_sparse.py) at small probe
-    sizes, gridded HBM-streaming (ops/pallas/kron_sparse_big.py) up to the
-    reference's capacity envelope (ref README.md:54), else the XLA path."""
-    from psgd_tf_tpu.ops import pallas as pallas_ops
-    from psgd_tf_tpu.ops.pallas import kron_sparse, kron_sparse_big
-
-    if pallas_ops.kernels_active() and jnp.result_type(a) == jnp.float32:
-        if kron_sparse.fits(*dX.shape):
-            fn = {
-                "ns": kron_sparse.fused_update_ns,
-                "ds": kron_sparse.fused_update_ds,
-                "nd": kron_sparse.fused_update_nd,
-            }[kind]
-        elif kron_sparse_big.fits_grid(kind, *dX.shape):
-            fn = {
-                "ns": kron_sparse_big.fused_update_ns,
-                "ds": kron_sparse_big.fused_update_ds,
-                "nd": kron_sparse_big.fused_update_nd,
-            }[kind]
-        else:
-            fn = None
-        if fn is not None:
-            return pallas_ops.replicated_call(
-                lambda *args: fn(
-                    *args, t, interpret=pallas_ops.interpret_default()
-                ),
-                a, b, dX, dG, s,
-            )
-    return xla_fn(a, b, dX, dG, s, t)
-
-
-def route(fmt: tuple[Format, Format], shape: tuple[int, int]) -> str:
-    """Which UPDATE path would serve this (format pair, probe shape) with
-    kernels active on fp32 state — introspection for benches/tests so a
-    claimed kernel row can assert it is NOT silently riding the XLA
-    fallback (VERDICT r4 ask #1 "routing verified").
-
-    Returns one of:
-      'kron_dd'            — fused one-launch (dense, dense) kernel
-      'kron_sparse:<kind>' — VMEM-resident sparse-pair kernel
-      'kron_sparse_big:<kind>'       — gridded streaming kernel
-      'kron_sparse_big:ns_wide'      — the 2-D-grid wide-lane ns path
-      'xla'                — no kernel fits; XLA formulation
-    Mirror pairs report their canonical sibling's route (the dispatch
-    transposes exactly as `update` does).
-    """
-    from psgd_tf_tpu.ops import pallas as pallas_ops
-    from psgd_tf_tpu.ops.pallas import kron_sparse, kron_sparse_big
-
-    if tuple(fmt) not in _CANON:
-        raise ValueError(f"unsupported Kronecker format pair: {fmt}")
-    kind, mirrored = _CANON[tuple(fmt)]
-    m, n = (shape[1], shape[0]) if mirrored else shape
-    if kind == "dd":
-        return ("kron_dd" if max(m, n) <= pallas_ops.kron_dd.MAX_SIDE
-                else "xla")
-    if kron_sparse.fits(m, n):
-        return f"kron_sparse:{kind}"
-    if kron_sparse_big.fits_grid(kind, m, n):
-        if kind == "ns" and -(-n // 128) * 128 > kron_sparse_big.MAX_LANES:
-            return "kron_sparse_big:ns_wide"
-        return f"kron_sparse_big:{kind}"
-    return "xla"
-
-
-def _apply_ns_dispatch(ql, qr, G):
-    """(norm, scale) apply: the XLA chain at EVERY size. The r5 pad-free
-    wide apply kernel (kron_sparse_big.fused_apply_ns_wide) was briefly
-    routed for the wide regime on a measurement later traced to a
-    timing-harness artifact (the carry threading materialized a probe
-    copy per iteration — bench.py); the corrected A/B has the XLA chain
-    AT the mixed stream law everywhere and the kernel slower at the
-    shapes tried — (65536, 8192): 15.9 vs 16.1 ms; (512, 131072): tie;
-    (131072, 512): 2.0 vs 2.8 ms; (512, 1e6) pair: 15.9 (XLA) vs 22.3
-    (kernel). The kernel stays as a tested, unrouted variant like its
-    1-D siblings."""
-    return _apply_ns(ql, qr, G)
+    return [update(st, x, g, step) for st, x, g in zip(states, dXs, dGs)]
 
 
 def apply(state: KronState, G: jax.Array) -> jax.Array:
-    # The arrow-left applies stay XLA at EVERY size: single-pass pallas
-    # applies exist (kron_sparse_big.fused_apply_*) but the corrected r5
-    # A/Bs have the XLA chain at the mixed stream law at every measured
-    # shape (see _apply_ns_dispatch).
     ql, qr, fmt = state.ql, state.qr, state.fmt
     if fmt == ("dense", "dense"):
         return _apply_dd(ql, qr, G)
@@ -463,102 +297,41 @@ def apply(state: KronState, G: jax.Array) -> jax.Array:
     if fmt == ("scale", "dense"):       # ref :144
         return _apply_ds(qr, ql, G.T).T
     if fmt == ("norm", "scale"):
-        return _apply_ns_dispatch(ql, qr, G)
+        return _apply_ns(ql, qr, G)
     if fmt == ("scale", "norm"):        # ref :146
-        return _apply_ns_dispatch(qr, ql, G.T).T
+        return _apply_ns(qr, ql, G.T).T
     raise ValueError(f"unsupported Kronecker format pair: {fmt}")
 
 
 # ---------------------------------------------------------------------------
-# batched (dense, dense) path — many small layers, one launch
+# batched (dense, dense) path — many same-shape layers, one op chain
 # ---------------------------------------------------------------------------
-# A model like LeNet5 carries five (dense, dense) pairs whose factors are
-# 6..257 wide. Updating them one-by-one costs ~12 dispatches per layer (or
-# one Pallas launch each), and at these sizes every dispatch is
-# latency-bound, not FLOP-bound. The batched path stores all such factors
-# *stacked and padded* — Ql: (B, S, S), Qr: (B, T, T), padded region held
-# at exact identity — so the whole zoo updates in ONE gridded Pallas launch
-# (ops/pallas/kron_dd.fused_update_batched) or one vmapped XLA op chain.
-#
-# Identity padding keeps everything exact: padded rows of dX/dG are zero,
-# so A and Bt vanish outside the (m, n) block, the group gradients vanish
-# outside (m, m)/(n, n), and `Q - step * grad @ Q` leaves the identity
-# extension untouched. Balancing maxima mask the padded diagonal.
+# Layers whose (dense, dense) factors have identical shapes are stored
+# stacked — Ql: (B, m, m), Qr: (B, n, n) — and updated by one vmapped op
+# chain instead of B separate ones.
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class BatchedDDState:
-    """Stacked padded (dense, dense) factors for B layers.
+    """Stacked (dense, dense) factors of B layers of one (m, n) shape."""
 
-    ql[i] is the (S, S) upper-triangular left factor of layer i: the true
-    (m_i, m_i) factor in the top-left corner, exact identity beyond. Same
-    for qr with (T, T). `shapes` records the true per-layer (m_i, n_i).
-    """
-
-    ql: jax.Array  # (B, S, S)
-    qr: jax.Array  # (B, T, T)
-    shapes: tuple[tuple[int, int], ...] = flax.struct.field(
-        pytree_node=False, default=()
-    )
-
-
-def _pad_factor(q: jax.Array, side: int) -> jax.Array:
-    d = q.shape[0]
-    if d == side:
-        return q
-    out = jnp.zeros((side, side), q.dtype).at[:d, :d].set(q)
-    return out.at[jnp.arange(d, side), jnp.arange(d, side)].set(1.0)
+    ql: jax.Array  # (B, m, m)
+    qr: jax.Array  # (B, n, n)
 
 
 def init_batched(
-    shapes: tuple[tuple[int, int], ...],
+    shape: tuple[int, int],
+    count: int,
     init_scale: float = 1.0,
     dtype=jnp.float32,
-    pad_multiple: int = 128,
 ) -> BatchedDDState:
-    """Stacked identity init for B (dense, dense) layers (ref README.md:48)."""
-    S = max(-(-m // pad_multiple) * pad_multiple for m, _ in shapes)
-    T = max(-(-n // pad_multiple) * pad_multiple for _, n in shapes)
-    eye_s, eye_t = jnp.eye(S, dtype=dtype), jnp.eye(T, dtype=dtype)
-
-    def one(d, side, eye):
-        scale_vec = jnp.where(jnp.arange(side) < d, init_scale, 1.0).astype(dtype)
-        return eye * scale_vec[None, :]
-
-    ql = jnp.stack([one(m, S, eye_s) for m, _ in shapes])
-    qr = jnp.stack([one(n, T, eye_t) for _, n in shapes])
-    return BatchedDDState(ql=ql, qr=qr, shapes=tuple(map(tuple, shapes)))
-
-
-def stack_padded(mats: Sequence[jax.Array], S: int, T: int) -> jax.Array:
-    """Zero-pad each (m_i, n_i) matrix into an (S, T) slot and stack."""
-    out = jnp.zeros((len(mats), S, T), jnp.result_type(*mats))
-    for i, x in enumerate(mats):
-        out = out.at[i, : x.shape[0], : x.shape[1]].set(x)
-    return out
-
-
-def _update_dd_padded(Ql, Qr, dX, dG, m, n, step, t):
-    """_update_dd on one padded layer; m, n may be traced (vmap-friendly).
-
-    Ql: (S, S) identity-extended; dX/dG: (S, T) zero-padded.
-    """
-    S, T = Ql.shape[0], Qr.shape[0]
-    iS, iT = jnp.arange(S), jnp.arange(T)
-    max_l = jnp.max(jnp.where(iS < m, jnp.diagonal(Ql), -jnp.inf))
-    max_r = jnp.max(jnp.where(iT < n, jnp.diagonal(Qr), -jnp.inf))
-    rho = jnp.sqrt(max_l / max_r)
-    # rescale the valid block only; keep the identity extension exact
-    Qlb = jnp.where(iS[:, None] >= m, jnp.eye(S, dtype=Ql.dtype), Ql / rho)
-    Qrb = jnp.where(iT[:, None] >= n, jnp.eye(T, dtype=Qr.dtype), Qr * rho)
-
-    A = Qlb @ (dG @ Qrb.T)
-    Bt = linalg.solve_ut_t(Qlb, linalg.solve_ut_t(Qrb, dX.T).T)
-    grad1 = linalg.triu(A @ A.T - Bt @ Bt.T)
-    grad2 = linalg.triu(A.T @ A - Bt.T @ Bt)
-    step1 = linalg.step_scale(step, linalg.max_abs(grad1), Qlb.dtype)
-    step2 = linalg.step_scale(step, linalg.max_abs(grad2), Qrb.dtype)
-    return Qlb - step1 * (grad1 @ Qlb), Qrb - step2 * (grad2 @ Qrb)
+    """Stacked identity init for `count` (dense, dense) layers of one
+    shape (ref README.md:48)."""
+    m, n = shape
+    return BatchedDDState(
+        ql=jnp.broadcast_to(_factor_init("dense", m, init_scale, dtype), (count, m, m)),
+        qr=jnp.broadcast_to(_factor_init("dense", n, init_scale, dtype), (count, n, n)),
+    )
 
 
 def update_batched(
@@ -568,35 +341,12 @@ def update_batched(
     step: jax.Array | float = 0.01,
     key: jax.Array | None = None,
 ) -> BatchedDDState:
-    """One Lie-group step for every stacked layer, single launch."""
+    """One Lie-group step for every stacked layer."""
     del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    B, S, _ = state.ql.shape
-    T = state.qr.shape[1]
     dtype = jnp.result_type(state.ql)
-    t = linalg.tiny(dtype)
-    s = jnp.asarray(step, dtype)
-    dx = stack_padded(dXs, S, T)
-    dg = stack_padded(dGs, S, T)
-    ms = jnp.asarray([m for m, _ in state.shapes], jnp.int32)
-    ns = jnp.asarray([n for _, n in state.shapes], jnp.int32)
-
-    if (
-        pallas_ops.kernels_active()
-        and dtype == jnp.float32
-        and max(S, T) <= pallas_ops.kron_dd.MAX_SIDE
-    ):
-        ql, qr = pallas_ops.replicated_call(
-            lambda *a: pallas_ops.kron_dd.fused_update_batched(
-                *a, t, interpret=pallas_ops.interpret_default()
-            ),
-            state.ql, state.qr, dx, dg, ms, ns, s,
-        )
-    else:
-        ql, qr = jax.vmap(
-            _update_dd_padded, in_axes=(0, 0, 0, 0, 0, 0, None, None)
-        )(state.ql, state.qr, dx, dg, ms, ns, s, t)
+    ql, qr = jax.vmap(_update_dd, in_axes=(0, 0, 0, 0, None, None))(
+        state.ql, state.qr, jnp.stack(dXs), jnp.stack(dGs),
+        jnp.asarray(step, dtype), linalg.tiny(dtype))
     return state.replace(ql=ql, qr=qr)
 
 
@@ -604,26 +354,15 @@ def apply_batched(
     state: BatchedDDState, Gs: Sequence[jax.Array]
 ) -> list[jax.Array]:
     """P_i G_i for every stacked layer via batched matmuls."""
-    B, S, _ = state.ql.shape
-    T = state.qr.shape[1]
-    g = stack_padded(Gs, S, T)
-    # Ql^T (Ql (G (Qr^T Qr))): zero padding in G confines every product to
-    # the valid block, so no masking is needed before the final slice.
-    rr = jnp.einsum("bji,bjk->bik", state.qr, state.qr)
-    pre = jnp.einsum("bji,bjk->bik", state.ql,
-                     jnp.einsum("bij,bjk->bik", state.ql,
-                                jnp.einsum("bij,bjk->bik", g, rr)))
-    return [pre[i, :m, :n] for i, (m, n) in enumerate(state.shapes)]
+    pre = jax.vmap(_apply_dd)(state.ql, state.qr, jnp.stack(Gs))
+    return list(pre)
 
 
 def unbatch(state: BatchedDDState) -> list[KronState]:
     """Per-layer views of a batched state (tests / interop)."""
     return [
-        KronState(
-            ql=state.ql[i, :m, :m], qr=state.qr[i, :n, :n],
-            fmt=("dense", "dense"),
-        )
-        for i, (m, n) in enumerate(state.shapes)
+        KronState(ql=ql, qr=qr, fmt=("dense", "dense"))
+        for ql, qr in zip(state.ql, state.qr)
     ]
 
 

@@ -6,42 +6,32 @@ Unlike standard low-rank forms (diag + U U^T) this fits *both* ends of the
 Hessian spectrum, so tiny ranks (~10) work at millions of parameters
 (ref README.md:17-19).
 
-TPU-native layout: the factors are stored **rank-major**, `U, V: (r, n)` —
-the parameter axis rides the 128-wide lane dimension, so every kernel op is
-either a lane-wise broadcast/reduce (VPU) or an (r, BLK) contraction (MXU).
-The reference stores (n, r) column factors (ref :687-689); with r ~ 10 that
-layout wastes 118/128 lanes of every vector register on TPU. All compute is
-O(n r) streaming plus two solves against the r x r Gram matrix I + V U^T
-(Woodbury identity, ref :574-579). On a sharded mesh U, V shard along the
-parameter (lane) axis together with d and the probe vectors; the r-sized
-reductions become psums that GSPMD inserts automatically.
+Layout: the factors are stored **rank-major**, `U, V: (r, n)`, the
+parameter axis contiguous (the reference stores (n, r) columns,
+ref :687-689). All compute is O(n r) streaming plus two solves against the
+r x r Gram matrix I + V U^T (Woodbury identity, ref :574-579). On a
+sharded mesh U, V shard along the parameter axis together with d and the
+probe vectors; the r-sized reductions become psums that GSPMD inserts.
 
 Stochastic branches, functionalized with explicit PRNG keys (the reference
 uses in-place tf.Variable assigns and global RNG, ref :562, :588):
   - with prob 0.01 rebalance the dynamic ranges of U and V;
   - per step update *either* U or V (prob 0.5 each), each with a
     closed-form spectral-norm-proxy step size.
-
-On TPU the whole update runs as three fused Pallas streaming kernels at
-the HBM traffic bound (ops/pallas/lra_upd.py); the XLA path below is the
-fallback and oracle.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.ops import linalg
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class LRAState:
-    # U and V live PACKED in one (2r, n) rank-major array (U rows then V
-    # rows): a 2-D fp32 array's sublane dim physically rounds up to 8 in
-    # HBM, so two separate (10, n) factors would occupy 32 rows of real
-    # traffic where the packed array occupies 24 — a 25% streaming tax at
-    # the reference's r = 10 (measured, ops/pallas/lra_upd.py docstring).
+    # U and V live packed in one (2r, n) rank-major array (U rows, then
+    # V rows); the properties below are slices XLA fuses.
     UV: jax.Array  # (2r, n) packed rank-major factors
     d: jax.Array   # (n,)
 
@@ -88,29 +78,7 @@ def update(
 ) -> LRAState:
     if key is None:
         raise ValueError("lra.update requires a PRNG key (stochastic branches)")
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
     dtype = state.d.dtype
-    t = linalg.tiny(dtype)
-    ctx = pallas_ops.shard_ctx()
-    if ctx is not None and dtype == jnp.float32:
-        # mesh-sharded kernels: lane-partitioned factors, psum'd rank-space
-        # reductions over the `shard` axis (lra_upd.fused_update_sharded)
-        mesh, axis = ctx
-        new_UV, new_d = pallas_ops.lra_upd.fused_update_sharded(
-            state.UV, state.d, v, h, step, key, t,
-            mesh=mesh, axis=axis, interpret=pallas_ops.interpret_default(),
-        )
-        return LRAState(UV=new_UV, d=new_d)
-    if pallas_ops.enabled() and dtype == jnp.float32:
-        # two-pass streaming kernels (ops/pallas/lra_upd.py); identical
-        # PRNG branch structure, so trajectories match the path below
-        new_UV, new_d = pallas_ops.lra_upd.fused_update(
-            state.UV, state.d, v, h, step, key, t,
-            interpret=pallas_ops.interpret_default(),
-        )
-        return LRAState(UV=new_UV, d=new_d)
-
     k_bal, k_uv = jax.random.split(key)
     s = jnp.asarray(step, dtype)
 
@@ -202,43 +170,6 @@ def apply(state: LRAState, g: jax.Array) -> jax.Array:
     """P g = d * (I + V U^T) (I + U V^T) (d * g)  (ref :619-627)."""
     x = _ip_uvt_matvec(state.U, state.V, state.d * g)
     return state.d * _ip_uvt_matvec(state.V, state.U, x)
-
-
-def update_apply(
-    state: LRAState,
-    v: jax.Array,
-    h: jax.Array,
-    g: jax.Array,
-    step: jax.Array | float = 0.01,
-    key: jax.Array | None = None,
-) -> tuple[LRAState, jax.Array]:
-    """update() followed by apply() of the UPDATED state, fused on TPU:
-    the apply's rank-space reductions ride the update's stage-3 sweep
-    while the new factors are VMEM-resident (ops/pallas/lra_upd.py),
-    saving the separate apply's four factor passes. Identical results to
-    the two-call sequence (the optimizer's with-update branch)."""
-    if key is None:
-        raise ValueError("lra.update_apply requires a PRNG key")
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    dtype = state.d.dtype
-    t = linalg.tiny(dtype)
-    ctx = pallas_ops.shard_ctx()
-    if ctx is not None and dtype == jnp.float32:
-        mesh, axis = ctx
-        new_UV, new_d, pre = pallas_ops.lra_upd.fused_update_apply_sharded(
-            state.UV, state.d, v, h, g, step, key, t,
-            mesh=mesh, axis=axis, interpret=pallas_ops.interpret_default(),
-        )
-        return LRAState(UV=new_UV, d=new_d), pre
-    if pallas_ops.enabled() and dtype == jnp.float32:
-        new_UV, new_d, pre = pallas_ops.lra_upd.fused_update_apply(
-            state.UV, state.d, v, h, g, step, key, t,
-            interpret=pallas_ops.interpret_default(),
-        )
-        return LRAState(UV=new_UV, d=new_d), pre
-    st = update(state, v, h, step=step, key=key)
-    return st, apply(st, g)
 
 
 def materialize(state: LRAState) -> jax.Array:

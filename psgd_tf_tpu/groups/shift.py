@@ -14,9 +14,9 @@ different orbit pairing. Unlike xmat (which shortcuts position i to its
 mirror n-1-i), shift couples each coordinate to the one half the vector
 away — the first butterfly stage of an FFT dataflow.
 
-TPU-native layout: the fold that puts each orbit {i, i+m} in a column of
-a (2, m) array is a pure RESHAPE — `xf = x.reshape(2, m)` — so unlike
-xmat not even the boundary pays a lane reversal. All the pair math lives
+Layout: the fold that puts each orbit {i, i+m} in a column of a (2, m)
+array is a pure RESHAPE — `xf = x.reshape(2, m)` — so unlike xmat not
+even the boundary reverses data. All the pair math lives
 in groups/_pairs.py (shared with xmat; see the derivation there).
 
 Odd n: a half-length circular shift is not an involution (σ² = shift by
@@ -25,23 +25,23 @@ i ↔ i + m (m = n//2) for i < m and fixing the LAST index as a σ-fixed
 center with a diagonal-only entry — the same center convention as xmat's
 middle index, relocated to the tail so the fold stays a reshape.
 
-O(n) state, O(n) compute, pure VPU elementwise work.
+O(n) state, O(n) compute, pure elementwise work.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.groups import _pairs
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ShiftState:
     af: jax.Array  # (2, m) folded diagonal: af[0, i] = a_i, af[1, i] = a_{i+m}
     bf: jax.Array  # (2, m) folded shift part: bf[0, i] = Q[i, i+m], bf[1, i] = Q[i+m, i]
     ac: jax.Array  # () center (last-index) diagonal entry; only meaningful when odd
-    odd: bool = flax.struct.field(pytree_node=False, default=False)
+    odd: bool = struct.field(static=True, default=False)
 
     @property
     def n(self) -> int:

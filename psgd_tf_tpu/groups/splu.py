@@ -10,38 +10,26 @@ with a dense order-r corner (L1 lower-tri, U1 upper-tri) and diagonal tails,
 so the state is O(n r) for n parameters. This family resembles limited-memory
 BFGS (ref README.md:33).
 
-TPU-native layout — RANK-MAJOR: both rectangular factors are stored with
-the parameter axis on the 128-wide lane dimension, `Lt = L12^T: (r, n)`
-(the reference keeps (n, r) columns, ref :398-405, wasting 118/128 lanes
-at the default r = 10) and `U12: (r, n)`. Every tail operation is then a
-lane-wise broadcast/reduce or an (r, blk) contraction. Blocks:
+Layout — RANK-MAJOR: both rectangular factors are stored with the
+parameter axis contiguous, `Lt = L12^T: (r, n)` (the reference keeps
+(n, r) columns, ref :398-405) and `U12: (r, n)`. Blocks:
 L1 = Lt[:, :r]^T (r x r lower-tri), L2^T = Lt[:, r:], U1 = U12[:, :r],
 U2 = U12[:, r:]; l3 and u3 are (n - r,) vectors.
 
 Per update: 4 triangular solves on the r x r corner + tail streaming. The
 block algebra below computes Q dg, Q^{-T} dx, P dg and P^{-1} dx without
-ever forming n x n matrices. On TPU the tail streaming runs as three fused
-Pallas passes (ops/pallas/splu_upd.py) with all rank-space reductions
-packed into one Gram; the XLA path below is the fallback and oracle.
-
-A useful invariance the fused path exploits: the L/U dynamic-range
-balancing (ref :411-417) rescales L by 1/rho and U by rho, which leaves
-Q = L U — and therefore every probe image and both group gradients —
-unchanged; only the final factor updates pick up the 1/rho and rho
-scalars. The XLA path below applies the balancing up front (matching the
-reference's order of operations exactly); the kernel folds it into the
-output scalars.
+ever forming n x n matrices.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.ops import linalg
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SpLUState:
     Lt: jax.Array   # (r, n) = L12^T: [:, :r] = L1^T, [:, r:] = L2^T
     l3: jax.Array   # (n - r,)
@@ -58,121 +46,9 @@ class SpLUState:
         return self.Lt.T
 
 
-@flax.struct.dataclass
-class SpLUStreamState:
-    """Sparse-LU state in KERNEL LAYOUT for the streaming regime (r5).
-
-    The r5 per-stage attribution (ops/pallas/splu_upd.py docstring)
-    showed the streaming kernels running AT the measured stream laws
-    while ~46% of the update+apply pair was XLA glue: the
-    (r, nt) -> (rp, ntp) pad copies into every launch and the
-    [:r, :nt] slice + corner concat copies out of it. This layout
-    stores the state exactly as the kernels consume it, so the glue
-    never materializes:
-
-      L1t, U1 : (r, r) corner factors (L1^T upper-tri, U1 upper-tri)
-      L2tp    : (rp, ntp) = L2^T row-padded to the fp32 sublane quantum
-                and lane-padded to the kernel block; pad rows/lanes 0
-      U2p     : (rp, ntp) likewise
-      l3p,u3p : (ntp,); pad lanes drift by the balance scalars but
-                their PRODUCT stays exactly 1 (all pad contributions
-                zero; maxima are masked)
-
-    `init` picks this layout for fp32 states past the VMEM-resident cap
-    (splu_one.fits); smaller/bf16 states keep the legacy SpLUState. The
-    legacy views (.Lt/.l3/.U12/.u3) are PROPERTIES (materialize copies
-    — tests/diagnostics/fallback only; the routed paths never touch
-    them)."""
-
-    L1t: jax.Array
-    U1: jax.Array
-    L2tp: jax.Array
-    U2p: jax.Array
-    l3p: jax.Array
-    u3p: jax.Array
-    n: int = flax.struct.field(pytree_node=False, default=0)
-
-    @property
-    def rank(self) -> int:
-        return self.L1t.shape[0]
-
-    @property
-    def nt(self) -> int:
-        return self.n - self.rank
-
-    @property
-    def Lt(self) -> jax.Array:
-        r = self.rank
-        return jnp.concatenate([self.L1t, self.L2tp[:r, :self.nt]], axis=1)
-
-    @property
-    def U12(self) -> jax.Array:
-        r = self.rank
-        return jnp.concatenate([self.U1, self.U2p[:r, :self.nt]], axis=1)
-
-    @property
-    def l3(self) -> jax.Array:
-        return self.l3p[:self.nt]
-
-    @property
-    def u3(self) -> jax.Array:
-        return self.u3p[:self.nt]
-
-    @property
-    def L12(self) -> jax.Array:
-        """(n, r) column layout view (tests/diagnostics; ref layout)."""
-        return self.Lt.T
-
-
-def _stream_dims(r: int, nt: int) -> tuple[int, int]:
-    from psgd_tf_tpu.ops.pallas import splu_upd
-
-    rp = max(splu_upd.SUB, -(-r // splu_upd.SUB) * splu_upd.SUB)
-    ntp = -(-nt // splu_upd.BLKN) * splu_upd.BLKN
-    return rp, ntp
-
-
-def _pack_stream(n: int, L1t, U1, L2t, U2, l3, u3,
-                 l3_fill=None, u3_fill=None) -> SpLUStreamState:
-    """Assemble a stream state from logical (r, nt) blocks. Pad fills
-    for l3p/u3p default to 1.0; the XLA-fallback repack passes the
-    balance-drifted fills (1/rho, rho) so a kernels-off update evolves
-    the pad lanes the same way the kernel path does — oracle
-    leaf-compares then see matching pads, not a spurious deviation."""
-    r = L1t.shape[0]
-    nt = n - r
-    rp, ntp = _stream_dims(r, nt)
-    dtype = L1t.dtype
-    padm = lambda m: jnp.zeros((rp, ntp), dtype).at[:r, :nt].set(m)
-    def padv(x, fill):
-        fill = jnp.asarray(1.0 if fill is None else fill, dtype)
-        return jnp.full((ntp,), fill, dtype).at[:nt].set(x)
-    return SpLUStreamState(
-        L1t=L1t, U1=U1, L2tp=padm(L2t), U2p=padm(U2),
-        l3p=padv(l3, l3_fill), u3p=padv(u3, u3_fill), n=n,
-    )
-
-
 def init(n: int, rank: int = 10, init_scale: float = 1.0, dtype=jnp.float32):
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
     r = min(rank, n)
     s = init_scale
-    if (
-        jnp.dtype(dtype) == jnp.float32
-        and n - r >= 1
-        and not pallas_ops.splu_one.fits(r, n)
-    ):
-        # streaming regime: kernel-layout state (see SpLUStreamState)
-        return _pack_stream(
-            n,
-            s * jnp.eye(r, dtype=dtype),
-            s * jnp.eye(r, dtype=dtype),
-            jnp.zeros((r, n - r), dtype=dtype),
-            jnp.zeros((r, n - r), dtype=dtype),
-            s * jnp.ones((n - r,), dtype=dtype),
-            s * jnp.ones((n - r,), dtype=dtype),
-        )
     return SpLUState(
         Lt=jnp.concatenate(
             [s * jnp.eye(r, dtype=dtype), jnp.zeros((r, n - r), dtype=dtype)], axis=1
@@ -209,51 +85,6 @@ def _max_abs0(x: jax.Array) -> jax.Array:
     return jnp.max(jnp.abs(x), initial=0.0)
 
 
-def _update_stream(state: SpLUStreamState, v, h, step, g=None):
-    """Update (+ optional fused P' g) on the kernel-layout state.
-
-    Routed: the zero-copy stream kernels. Sharded context or kernels-off
-    falls back through the LEGACY path on the logical views and repacks,
-    passing the balance scalars so the pad lanes evolve exactly as the
-    kernel path evolves them."""
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    dtype = state.L1t.dtype
-    t = linalg.tiny(dtype)
-    ctx = pallas_ops.shard_ctx()
-    if ctx is None and pallas_ops.enabled():
-        out = pallas_ops.splu_upd.fused_update_stream(
-            state.L1t, state.U1, state.L2tp, state.U2p, state.l3p,
-            state.u3p, state.n, v, h, step, t,
-            interpret=pallas_ops.interpret_default(), g=g,
-        )
-        new = state.replace(
-            L1t=out[0], U1=out[1], L2tp=out[2], U2p=out[3],
-            l3p=out[4], u3p=out[5],
-        )
-        return (new, out[6]) if g is not None else new
-
-    # balance scalars from the PRE-update state (the legacy path applies
-    # the same balancing internally) — they drive the pad-lane fills
-    r = state.rank
-    max_l = jnp.maximum(jnp.max(jnp.diagonal(state.L1t)), _max0(state.l3))
-    max_u = jnp.maximum(jnp.max(jnp.diagonal(state.U1)), _max0(state.u3))
-    rho = jnp.sqrt(max_l / max_u)
-    legacy = SpLUState(Lt=state.Lt, l3=state.l3, U12=state.U12, u3=state.u3)
-    st2 = update(legacy, v, h, step=step)
-    new = _pack_stream(
-        state.n, st2.Lt[:, :r], st2.U12[:, :r], st2.Lt[:, r:],
-        st2.U12[:, r:], st2.l3, st2.u3,
-        l3_fill=state.l3p[-1] / rho if state.nt < state.l3p.shape[0]
-        else None,
-        u3_fill=state.u3p[-1] * rho if state.nt < state.u3p.shape[0]
-        else None,
-    )
-    if g is not None:
-        return new, apply(new, g)
-    return new
-
-
 def update(
     state: SpLUState,
     v: jax.Array,
@@ -262,41 +93,8 @@ def update(
     key: jax.Array | None = None,
 ) -> SpLUState:
     del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    if isinstance(state, SpLUStreamState):
-        return _update_stream(state, v, h, step)
-
     dtype = state.Lt.dtype
     r = state.rank
-    n = state.Lt.shape[1]
-
-    ctx = pallas_ops.shard_ctx()
-    if (
-        dtype == jnp.float32
-        and n - r >= 1
-        and (ctx is not None or pallas_ops.enabled())
-    ):
-        if ctx is None and pallas_ops.splu_one.fits(r, n):
-            # single-launch VMEM-resident update: state read once, whole
-            # algebra on-chip (ops/pallas/splu_one.py)
-            Lt, l3, U12, u3 = pallas_ops.splu_one.fused_update(
-                state.Lt, state.l3, state.U12, state.u3, v, h,
-                step, linalg.tiny(dtype),
-                interpret=pallas_ops.interpret_default(),
-            )
-            return SpLUState(Lt=Lt, l3=l3, U12=U12, u3=u3)
-        # fused three-pass tail streaming (ops/pallas/splu_upd.py);
-        # sharded over the mesh when a sharding context is active
-        mesh, axis = ctx if ctx is not None else (None, None)
-        Lt, l3, U12, u3 = pallas_ops.splu_upd.fused_update(
-            state.Lt, state.l3, state.U12, state.u3, v, h,
-            step, linalg.tiny(dtype),
-            mesh=mesh, axis=axis,
-            interpret=pallas_ops.interpret_default() if ctx is not None
-            else False,
-        )
-        return SpLUState(Lt=Lt, l3=l3, U12=U12, u3=u3)
 
     # dynamic-range balancing of L vs U (ref :411-417). The tails l3/u3 are
     # empty when rank >= n (Q degenerates to a full LU); reductions must be
@@ -381,84 +179,8 @@ def update(
     )
 
 
-def update_apply(
-    state: SpLUState,
-    v: jax.Array,
-    h: jax.Array,
-    g: jax.Array,
-    step: jax.Array | float = 0.01,
-    key: jax.Array | None = None,
-) -> tuple[SpLUState, jax.Array]:
-    """update() followed by apply() of the UPDATED state.
-
-    VMEM-resident sizes route to the single-launch fused kernel
-    (ops/pallas/splu_one.py: update + P' g in one launch, state read
-    once). For STREAMING sizes the fused variant that rides the update's
-    stage-3 sweep (splu_upd.fused_update(..., g=g)) measured SLOWER on
-    v5e (n=1M r=10: +2.6ms vs the XLA apply chain's 365us — the stage-3
-    accumulator output serializes Mosaic's grid pipelining; the resident
-    kernel has no grid, which is the root-cause-consistent fix), so the
-    streaming regime keeps the separate calls."""
-    del key
-    from psgd_tf_tpu.ops import pallas as pallas_ops  # late: avoid cycle
-
-    if isinstance(state, SpLUStreamState):
-        # streaming regime: separate apply (the g-riding fused variant
-        # measured 2x slower, r5 re-A/B — see splu_upd.py docstring)
-        st = _update_stream(state, v, h, step)
-        return st, apply(st, g)
-
-    r, n = state.U12.shape
-    if (
-        state.Lt.dtype == jnp.float32
-        and n - r >= 1
-        and pallas_ops.shard_ctx() is None
-        and pallas_ops.enabled()
-        and pallas_ops.splu_one.fits(r, n)
-    ):
-        Lt, l3, U12, u3, pre = pallas_ops.splu_one.fused_update(
-            state.Lt, state.l3, state.U12, state.u3, v, h,
-            step, linalg.tiny(state.Lt.dtype),
-            interpret=pallas_ops.interpret_default(), g=g,
-        )
-        return SpLUState(Lt=Lt, l3=l3, U12=U12, u3=u3), pre
-    st = update(state, v, h, step=step)
-    return st, apply(st, g)
-
-
-def _apply_stream(state: SpLUStreamState, g: jax.Array) -> jax.Array:
-    """P g on the kernel-layout state with ZERO big copies: the tail
-    matvecs run directly on the padded (rp, ntp)/(ntp,) fields (pad rows
-    and lanes contribute exactly zero — L2tp/U2p pads are 0 and g2's pad
-    lanes are 0); only O(n) vectors are padded/sliced."""
-    r, nt, ntp = state.rank, state.nt, state.l3p.shape[0]
-    rp = state.L2tp.shape[0]
-    dtype = state.L1t.dtype
-    L1 = state.L1t.T
-    U1 = state.U1
-    g1 = g[:r]
-    g2 = g[r:]
-    g2p = (g2 if ntp == nt
-           else jnp.zeros((ntp,), dtype).at[:nt].set(g2))
-
-    pad_r = lambda x: (x if rp == r
-                       else jnp.zeros((rp,), dtype).at[:r].set(x))
-    Ug1 = U1 @ g1 + (state.U2p @ g2p)[:r]
-    Ug2 = state.u3p * g2p
-    Qg1 = L1 @ Ug1
-    Qg2 = pad_r(Ug1) @ state.L2tp + state.l3p * Ug2
-    LtQg1 = L1.T @ Qg1 + (state.L2tp @ Qg2)[:r]
-    LtQg2 = state.l3p * Qg2
-    return jnp.concatenate([
-        U1.T @ LtQg1,
-        (pad_r(LtQg1) @ state.U2p + state.u3p * LtQg2)[:nt],
-    ])
-
-
 def apply(state: SpLUState, g: jax.Array) -> jax.Array:
     """P g via the block matvec chain U -> L -> L^T -> U^T (ref :506-516)."""
-    if isinstance(state, SpLUStreamState):
-        return _apply_stream(state, g)
     r = state.rank
     L1, L2t, U1, U2 = _blocks(state)
     l3, u3 = state.l3, state.u3

@@ -21,42 +21,38 @@ Derivation (f = flip):
   G @ Q      : diag part  p*a + q*f(b),  anti part  p*b + q*f(a)
   Q <- Q - (step / (max(|p|,|q|) + tiny)) * (G @ Q)
 
-TPU-native layout — FOLDED: the math only ever couples index i with its
-mirror n-1-i, so the state stores both halves stacked, `af[0, i] = a_i`,
+Layout — FOLDED: the math only ever couples index i with its mirror
+n-1-i, so the state stores both halves stacked, `af[0, i] = a_i`,
 `af[1, i] = a_{n-1-i}` (i < n//2). Every `flip` above becomes "use the
 other row": compute splits the (2, m) arrays into (m,) row pairs and
-writes the coupled equations explicitly — pure fusable elementwise work
-with ZERO data reversals (round 1's flip formulation ran 6.9x slower than
-diag purely from the lane-reversal passes; an XLA `rev` on the (2, m)
-sublane axis measured even worse, ~86x an elementwise pass, so no
-`xf[::-1]` row swaps either). Only the probe fold/unfold at the boundary
-reverses data, touching each element once (~6 us at n = 4M on v5e vs
-~33 us per flip). On a mesh the folded rows co-locate each (i, n-1-i)
-pair, so sharded updates need no cross-device ring pass at all.
+writes the coupled equations explicitly — fusable elementwise work with
+no data reversals. Only the probe fold/unfold at the boundary reverses
+data, touching each element once. On a mesh the folded rows co-locate
+each (i, n-1-i) pair, so sharded updates need no cross-device exchange.
 
 Odd n: the center index lies on both diagonals; its diagonal entry is the
 scalar `ac` and its anti entry is fixed at 0 (the projected anti gradient
 at the center is zero by symmetry).
 
-O(n) state, O(n) compute, pure VPU elementwise work — but unlike diag it
+O(n) state, O(n) compute, pure elementwise work — but unlike diag it
 couples coordinate i with coordinate n-1-i, shortcutting gradients across
 distant positions.
 """
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from psgd_tf_tpu import struct
 from psgd_tf_tpu.groups import _pairs
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class XMatState:
     af: jax.Array  # (2, m) folded diagonal: af[0, i] = a_i, af[1, i] = a_{n-1-i}
     bf: jax.Array  # (2, m) folded anti-diagonal
     ac: jax.Array  # () center diagonal entry; only meaningful when odd
-    odd: bool = flax.struct.field(pytree_node=False, default=False)
+    odd: bool = struct.field(static=True, default=False)
 
     @property
     def n(self) -> int:

@@ -6,13 +6,12 @@ kernels reshape from the (H*W*Cin, Cout) rows. Architecture: conv5x5(6) →
 maxpool2 → relu → conv5x5(16) → maxpool2 → relu → fc120 → fc84 → fc10, all
 VALID padding, so 28x28 input yields a 4*4*16 flatten.
 
-TPU-native notes: NHWC layout with `lax.conv_general_dilated` (XLA lowers
-this straight onto the MXU). Maxpool is a reshape into 2x2 blocks + two
-`jnp.max` reductions rather than `lax.reduce_window`: identical values for
-even dims / stride-2 VALID windows, but every derivative is a select /
-elementwise op, whereas reduce_window differentiates through
-select-and-scatter — measured ~160us/step slower inside the exact-Hvp
-(jvp-of-grad) graph on v5e. The forward is shard-agnostic — batch-shard
+Notes: NHWC layout with `lax.conv_general_dilated`. Maxpool is a reshape
+into 2x2 blocks + two `jnp.max` reductions rather than
+`lax.reduce_window`: identical values for even dims / stride-2 VALID
+windows, but every derivative is a select / elementwise op, whereas
+reduce_window differentiates through select-and-scatter inside the
+exact-Hvp (jvp-of-grad) graph. The forward is shard-agnostic — batch-shard
 under pjit for data parallelism.
 """
 from __future__ import annotations

@@ -6,10 +6,9 @@ peephole-style variation where the cell state joins the input features
 single (hidden + 1, out) readout of the final hidden state. Two PSGD
 matrices: (in + 2*hidden + 1, 4*hidden) and (hidden + 1, out).
 
-TPU-native: the time loop is `lax.scan` over a (T, batch, in) tensor — one
+Design: the time loop is `lax.scan` over a (T, batch, in) tensor — one
 compiled fused cell instead of the reference's Python-unrolled graph — and
-the four gates come from one (batch, 4*hidden) matmul that XLA tiles onto
-the MXU.
+the four gates come from one (batch, 4*hidden) matmul.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ reproduces the reference's per-layer mixed Kronecker assignment
 (norm, scale), attention input (scale, dense), attention output
 (dense, dense), decoder fc (norm, scale).
 
-TPU-native: both RNNs run under `lax.scan` (the reference uses a
+Design: both RNNs run under `lax.scan` (the reference uses a
 tf.TensorArray loop for the encoder, ref :108-114, and a Python-unrolled
 decoder loop, ref :186-189); attention scores for *all* encoder positions
 compute as one batched matmul; teacher-forced decoding scans over target
@@ -43,8 +43,8 @@ def ref_config() -> Config:
     / max_length_targ 11. Kernel shapes at these dims — the (9414, 256) /
     (4935, 256) (scale, dense) embeddings, the (1281, 1024) / (2305, 1024)
     (norm, scale) RNNs, the (1025, 4935) (norm, scale) fc — are what
-    `bench.py`'s nmt_ref rows measure with synthetic tokens (the kernels
-    do not care about text; VERDICT r4 ask #1)."""
+    `bench.py`'s nmt_ref rows and `chip_smoke.py` run with synthetic
+    tokens (the optimizer's work does not depend on the text)."""
     return Config(vocab_src=9414, vocab_tgt=4935, embed=256, units=1024)
 
 

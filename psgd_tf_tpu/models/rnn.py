@@ -5,7 +5,7 @@ keras SimpleRNN(30) + Dense(1), kernels shrunk to 1/3 of glorot-uniform.
 Here the same network in PSGD matrix form: W_rnn is
 (dim_in + hidden + 1, hidden) with tanh, W_fc is (hidden + 1, out).
 
-TPU-native: `lax.scan` time loop, fused input+recurrent matmul.
+Design: `lax.scan` time loop, fused input+recurrent matmul.
 """
 from __future__ import annotations
 

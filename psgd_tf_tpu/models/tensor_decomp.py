@@ -6,7 +6,7 @@ sum((T - fit)^2) + 1e-3 * sum|factors|, factors initialized N(0, 1). The
 workload every preconditioner family runs on (dense / sparse-LU / kron /
 diag / xmat / lra).
 
-TPU-native: the triple outer product contracts via one einsum (MXU work),
+Design: the triple outer product contracts via one einsum (a matmul),
 not three chained expand_dims multiplies.
 """
 from __future__ import annotations

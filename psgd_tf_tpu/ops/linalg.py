@@ -158,9 +158,8 @@ def triu_outer_diff_matmul(a: jax.Array, b: jax.Array, q: jax.Array) -> jax.Arra
     The reference materializes the n x n group gradient and multiplies it
     into Q (ref :40-42). With *vector* probes the gradient is rank-2, so
     row i of `triu(a a^T) @ Q` is `a_i * sum_{j >= i} a_j Q[j, :]` — a
-    reverse cumulative sum. This is the TPU-native formulation: two
-    elementwise products plus two reverse cumsums, all VPU work that XLA
-    fuses, with no n^3 matmul.
+    reverse cumulative sum: two elementwise products plus two reverse
+    cumsums, elementwise work that XLA fuses, with no n^3 matmul.
 
     Args:
       a, b: (n,) vectors.

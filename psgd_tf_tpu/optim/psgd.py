@@ -28,12 +28,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Literal, Sequence
 
-import flax.struct
 import jax
 import jax.flatten_util
 import jax.numpy as jnp
 
-from psgd_tf_tpu import hvp
+from psgd_tf_tpu import hvp, struct
 from psgd_tf_tpu.groups import kron
 from psgd_tf_tpu.groups.base import FLAT_FAMILIES as _FLAT_FAMILIES
 from psgd_tf_tpu.ops import linalg
@@ -41,7 +40,7 @@ from psgd_tf_tpu.ops import linalg
 PyTree = Any
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Hyper:
     """Runtime-mutable hyperparameters (traced scalars; ref :673-680)."""
 
@@ -51,13 +50,13 @@ class Hyper:
     update_probability: jax.Array
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class PSGDState:
     count: jax.Array
     hyper: Hyper
     precond: Any  # family state (flat families), list[KronState] (kron),
     #             # or KronPrecond (kron with the batched dd group)
-    always_update: bool = flax.struct.field(pytree_node=False, default=False)
+    always_update: bool = struct.field(static=True, default=False)
     # static: True when the ctor's preconditioner_update_probability >= 1.0
     # compiled the coin-flip branch out (the loss graph then compiles once,
     # not twice). `set_hyper(update_probability=...)` raises on such a
@@ -66,27 +65,22 @@ class PSGDState:
     # always_update=False)` (one recompile) to re-enable the coin.
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class KronPrecond:
     """Kron state with eligible (dense, dense) layers grouped for batching.
 
-    `batches` holds one stacked BatchedDDState per *bucket* — layers whose
-    128-padded factor sides agree — so each bucket updates in one gridded
-    launch with tight padding (no wasted solve blocks on small layers).
+    `batches` holds one stacked BatchedDDState per *bucket* — layers of
+    identical shape — so each bucket updates in one vmapped op chain.
     `singles` holds the remaining layers' per-layer states, including
-    buckets below the kron_batch_min crossover. The index tuples map each
+    buckets smaller than kron_batch_min. The index tuples map each
     group back to parameter-tree leaf order and are static (part of the
     treedef).
     """
 
     batches: list
     singles: list
-    batched_idx: tuple[tuple[int, ...], ...] = flax.struct.field(
-        pytree_node=False, default=()
-    )
-    single_idx: tuple[int, ...] = flax.struct.field(
-        pytree_node=False, default=()
-    )
+    batched_idx: tuple[tuple[int, ...], ...] = struct.field(static=True, default=())
+    single_idx: tuple[int, ...] = struct.field(static=True, default=())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,19 +99,12 @@ class PSGD:
     #                                   # | [per-leaf (fmt_l, fmt_r), ...] in tree-leaf
     #                                   # order (the reference's per-layer mixed
     #                                   # assignment, e.g. nmt ref :99-148)
-    kron_batched: bool = True           # stack same-padded-size (dense,dense)
-    #                                   # layers and update each bucket in one
-    #                                   # gridded launch (groups/kron.py batched
-    #                                   # path); numerically equivalent to the
-    #                                   # per-layer ops (~1e-7 over 20 steps)
-    kron_batch_min: int = 4             # min layers per bucket to batch: at 3
-    #                                   # heterogeneous LeNet5-size layers the
-    #                                   # stacked probes' extra HBM round trip
-    #                                   # loses to per-layer fused launches
-    #                                   # (measured ~184 vs ~167 us/step); from
-    #                                   # ~6 same-shape layers batching wins
-    #                                   # (127 vs 142 us at B=6, 497 vs 645 us
-    #                                   # at B=24, (200,256) factors, v5e)
+    kron_batched: bool = True           # stack same-shape (dense, dense) layers
+    #                                   # and update each bucket in one vmapped
+    #                                   # op chain (groups/kron.py batched path);
+    #                                   # numerically equivalent to the
+    #                                   # per-layer ops
+    kron_batch_min: int = 4             # min layers per bucket to batch
     dtype: Any = jnp.float32
 
     # ------------------------------------------------------------------ init
@@ -172,21 +159,16 @@ class PSGD:
         return tuple(fmts)
 
     def _init_kron(self, params: PyTree):
-        from psgd_tf_tpu.ops.pallas import kron_dd
-
         leaves = jax.tree_util.tree_leaves(params)
         shapes = [_matrix_shape(leaf.shape) for leaf in leaves]
         fmts = [
             tuple(self._leaf_format(s, i, len(leaves)))
             for i, s in enumerate(shapes)
         ]
-        pad = lambda d: -(-d // 128) * 128
         buckets: dict[tuple[int, int], list[int]] = {}
         for i, (s, f) in enumerate(zip(shapes, fmts)):
-            if f == ("dense", "dense") and max(s) <= kron_dd.MAX_SIDE:
-                buckets.setdefault((pad(s[0]), pad(s[1])), []).append(i)
-        # only buckets with enough members amortize a gridded launch (see
-        # kron_batch_min above for the measured crossover)
+            if f == ("dense", "dense"):
+                buckets.setdefault(s, []).append(i)
         batched_idx = tuple(
             tuple(idx)
             for idx in buckets.values()
@@ -206,7 +188,7 @@ class PSGD:
         return KronPrecond(
             batches=[
                 kron.init_batched(
-                    tuple(shapes[i] for i in idx),
+                    shapes[idx[0]], len(idx),
                     init_scale=self.init_scale,
                     dtype=self.dtype,
                 )
@@ -316,18 +298,6 @@ class PSGD:
                     loss, grads, hvs = hvp.finite_diff(loss_fn, params, v, *args)
             h_flat = jax.flatten_util.ravel_pytree(hvs)[0]
             with jax.named_scope("psgd_q_update"):
-                if hasattr(fam, "update_apply"):
-                    # fused Q-update + precondition (one factor sweep,
-                    # e.g. groups/lra.update_apply)
-                    g_flat = jax.flatten_util.ravel_pytree(grads)[0]
-                    precond, pre = fam.update_apply(
-                        state.precond,
-                        v_flat.astype(self.dtype),
-                        h_flat.astype(self.dtype),
-                        g_flat.astype(self.dtype),
-                        step=hyper.lr_preconditioner, key=k_prec,
-                    )
-                    return loss, grads, precond, unravel(pre.astype(g_flat.dtype))
                 precond = fam.update(
                     state.precond,
                     v_flat.astype(self.dtype),
@@ -386,8 +356,6 @@ class PSGD:
                         ),
                     )
                 else:
-                    # all eligible (dense, dense) layers in one fused
-                    # launch with a single batched Newton chain
                     precond = kron.update_multi(
                         pc, v_leaves, h_leaves, step=hyper.lr_preconditioner
                     )

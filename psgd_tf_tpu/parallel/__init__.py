@@ -4,7 +4,7 @@ The reference is single-device; this package owns the build's distributed
 design: a device mesh with a `data` axis (batch parallelism) and a `shard`
 axis (preconditioner/optimizer state partitioning, ZeRO-style), sharding
 policies per preconditioner family, and a builder that jits an
-`opt.step` under those shardings so GSPMD inserts the ICI collectives —
+`opt.step` under those shardings so GSPMD inserts the collectives —
 grad/Hvp psums over `data`, r x r Gram-matrix psums over `shard`.
 """
 from psgd_tf_tpu.parallel.mesh import make_mesh

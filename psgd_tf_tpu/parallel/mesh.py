@@ -6,9 +6,9 @@ Axes:
           Q, the splu tails); the LRA r x r Grams and max-abs step
           normalizers psum here.
 
-On a pod slice, `jax.make_mesh` lays the named axes over the physical
-torus so `data` collectives ride ICI rings; across hosts the same code
-works after `jax.distributed.initialize()`.
+The cards of one host are joined all to all (NVLink), so the mapping of
+named axes onto devices carries no topology choice; across hosts the same
+code works after `jax.distributed.initialize()`.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def make_mesh(
     preconditioner algebra, inserting collectives where contractions cross
     the `shard` axis. (jax 0.9's default Explicit mode would instead demand
     `out_sharding` at every ambiguous contraction inside the family
-    kernels.)
+    updates.)
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

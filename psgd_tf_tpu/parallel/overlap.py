@@ -1,60 +1,13 @@
-"""Explicit collective/compute overlap: ring reductions on `ppermute`.
+"""Analytic communication model of a sharded PSGD training step.
 
-GSPMD lowers `lax.psum` to one all-reduce whose schedule is the
-compiler's business; nothing in the HLO *structure* lets the rank-space
-Gram exchange of a sharded preconditioner update proceed while the next
-streaming stage computes. This module provides the north-star mechanism
-(BASELINE.md "Hv exchange overlapped with kernel compute"; SURVEY.md §5
-"explicit ppermute pipelining where profitable"): reductions built from
-`lax.ppermute` hops, each hop an *async* collective-permute the TPU
-scheduler can run behind any independent compute — in particular, behind
-the Pallas launch that produces the NEXT chunk's partial Gram
-(ops/pallas/lra_upd.fused_update_sharded(pipelined=True)).
-
-Single-chip hardware cannot measure the overlap (no second device to
-exchange with); the virtual CPU mesh proves correctness
-(tests/test_parallel.py), and the communication volumes involved are
-recorded by `comm_model` below (reported via bench_scaling.py).
+`comm_model` computes, from shapes alone, the bytes each collective of a
+`parallel.build_sharded_step` step moves: the data-parallel reduction of
+gradients and Hvp probes, the tensor-parallel gathers, and the rank-space
+reductions of the sharded preconditioner state.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
-
-import jax
-import jax.numpy as jnp
-from jax import lax
-
-
-def ring_reduce(
-    x: jax.Array,
-    axis_name: str,
-    n_devices: int,
-    op: Callable[[jax.Array, jax.Array], jax.Array] = jnp.add,
-) -> jax.Array:
-    """All-reduce `x` over `axis_name` as a ring of n-1 `ppermute` hops.
-
-    Each hop forwards the running partial one step around the ring and
-    folds in the received value; after n-1 hops every device holds the
-    full reduction. Latency is (n-1) hops vs one tree all-reduce — the
-    point is not to beat `psum` in isolation but that each hop is an
-    async collective-permute with NO dependency on compute issued after
-    it, so the scheduler can hide the whole chain behind an independent
-    kernel launch. Payloads here are rank-space Grams (KBs), so the
-    chain is latency- not bandwidth-bound either way.
-    """
-    if n_devices == 1:
-        return x
-    perm = [(i, (i + 1) % n_devices) for i in range(n_devices)]
-    acc = x
-    buf = x
-    for _ in range(n_devices - 1):
-        buf = lax.ppermute(buf, axis_name, perm)
-        acc = op(acc, buf)
-    return acc
-
-
-def ring_max(x: jax.Array, axis_name: str, n_devices: int) -> jax.Array:
-    return ring_reduce(x, axis_name, n_devices, op=jnp.maximum)
+from typing import Any
 
 
 def comm_model(family: str, n_params: int | None = None, rank: int = 10,
@@ -63,8 +16,7 @@ def comm_model(family: str, n_params: int | None = None, rank: int = 10,
                param_specs: list | None = None,
                mesh_shape: dict[str, int] | None = None) -> dict[str, Any]:
     """Analytic bytes exchanged per SHARDED training step, per device pair
-    of collectives (payload, not wire framing) — computable today,
-    measurable when multi-chip hardware exists.
+    of collectives (payload, not wire framing), computed from shapes.
 
     Replicated-params (pure DP) call: `comm_model(family, n_params)`.
     Tensor-parallel call: pass `param_shapes` (per-param shapes),
@@ -82,14 +34,13 @@ def comm_model(family: str, n_params: int | None = None, rank: int = 10,
       * tensor parallelism: a `shard`-sharded param's probe (dX), Hvp (dG)
         and gradient each all-gather at the preconditioner boundary — the
         kron factor algebra and the flatten-concat families consume
-        replicated per-tensor views (parallel/step.py docstring: "GSPMD
-        gathering each TP layer's probe at the shard_map boundary").
+        replicated per-tensor views.
         Per-device received payload per gather of a size-s param sharded
         d ways: s * (d-1)/d elements -> 3 gathers per sharded param.
         (The preconditioned-grad slice back to the shard is local.)
       * preconditioner state sharding over `shard`: only RANK-SPACE
         quantities cross devices (the design invariant of every family's
-        sharded kernel); O(n) state never moves.
+        sharding policy, parallel/policies.py); O(n) state never moves.
           lra  : stage-1 Gram (2r+2)^2 + apply Gram (2r+2)^2 + maxes
           splu : corner solves replicate r-vectors / r^2 corners
           dense/kron/diag/xmat/shift: zero (replicated factors or

@@ -3,13 +3,12 @@
 Per SURVEY.md §2.4, the one real distributed-design problem this library
 owns is block-partitioning the preconditioner state itself:
 
-  dense  : Q replicates at every size, so the fused kernels (dense_upd
-           single-launch, dense_big gridded) run per-device. The update's
-           triangular solve and reverse-cumsum rank-2 form are sequential
-           along rows — row-sharding buys no parallelism and GSPMD's
-           cumsum partition is pathological (see precond_sharding) — and
-           the family's capacity envelope (n ~ 1e4, ref README.md:54)
-           keeps replicated Q cheap next to model state.
+  dense  : Q replicates at every size. The update's triangular solve
+           and reverse-cumsum rank-2 form are sequential along rows —
+           row-sharding buys no parallelism and GSPMD's cumsum partition is
+           pathological (see precond_sharding) — and the family's capacity
+           envelope (n ~ 1e4, ref README.md:54) keeps replicated Q cheap
+           next to model state.
   diag   : q over `shard`.
   xmat   : folded (2, m) rows over `shard` along the pair axis. The folded
            layout (groups/xmat.py) co-locates each coupled (i, n-1-i) pair,
@@ -28,9 +27,11 @@ owns is block-partitioning the preconditioner state itself:
            *batch* axis carries the parallelism for those workloads.
 
 Parameters and gradients replicate (pure DP); batches shard over `data`.
+A state dimension that the `shard` axis does not divide replicates.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any
 
 import jax
@@ -39,6 +40,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from psgd_tf_tpu.groups import dense, diag, lra, shift, splu, xmat
 from psgd_tf_tpu.optim.psgd import KronPrecond, PSGDState
 
+log = logging.getLogger(__name__)
 
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
@@ -50,7 +52,34 @@ def batch_sharding(mesh: Mesh) -> NamedSharding:
 
 
 def precond_sharding(mesh: Mesh, precond: Any) -> Any:
-    """A pytree of NamedShardings matching a family state's structure."""
+    """A pytree of NamedShardings matching a family state's structure.
+
+    A device array's sharded dimension must divide evenly over its mesh
+    axes, so a dimension the `shard` axis does not divide (a flat state of
+    odd width on two devices, say) stays replicated, with a warning: the
+    whole state then sits on every device."""
+    return jax.tree_util.tree_map(
+        lambda sh, x: _fit(sh, x.shape), _policy(mesh, precond), precond
+    )
+
+
+def _fit(sh: NamedSharding, shape) -> NamedSharding:
+    spec = []
+    for k, entry in enumerate(tuple(sh.spec)):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        size = 1
+        for ax in axes:
+            if ax is not None:
+                size *= sh.mesh.shape[ax]
+        if shape[k] % size:
+            log.warning("state dimension %d of shape %s does not divide over mesh axes %s "
+                        "of size %d: it replicates on every device", k, shape, entry, size)
+            entry = None
+        spec.append(entry)
+    return NamedSharding(sh.mesh, P(*spec))
+
+
+def _policy(mesh: Mesh, precond: Any) -> Any:
     row = NamedSharding(mesh, P("shard"))
     rowmat = NamedSharding(mesh, P("shard", None))
     colmat = NamedSharding(mesh, P(None, "shard"))
@@ -58,14 +87,13 @@ def precond_sharding(mesh: Mesh, precond: Any) -> Any:
 
     if isinstance(precond, dense.DenseState):
         # Q replicates at every size. The dense capacity envelope tops out
-        # at n ~ 1e4 (ref README.md:54; dense_big.MAX_N = 16384, ~1GB fp32
-        # replicated — cheap next to model state at that scale), and both
-        # the update's triangular solve and its reverse-cumsum rank-2 form
-        # are SEQUENTIAL along the row axis: row-sharding buys no speed,
-        # and GSPMD's partition of cumsum over a sharded axis was measured
-        # pathological (a (3456,)^2 reverse cumsum failed to complete in
-        # 120s on the virtual mesh vs 0.8s replicated). Replication keeps
-        # the fused kernels runnable per device (replicated_call).
+        # at n ~ 1e4 (ref README.md:54; n = 16384 is ~1GB fp32 replicated
+        # — cheap next to model state at that scale), and both the
+        # update's triangular solve and its reverse-cumsum rank-2 form are
+        # SEQUENTIAL along the row axis: row-sharding buys no speed, and
+        # GSPMD's partition of cumsum over a sharded axis was pathological
+        # (a (3456,)^2 reverse cumsum failed to complete in 120s on the
+        # virtual CPU mesh vs 0.8s replicated).
         return dense.DenseState(Q=rep)
     if isinstance(precond, diag.DiagState):
         return diag.DiagState(q=row)
@@ -82,14 +110,6 @@ def precond_sharding(mesh: Mesh, precond: Any) -> Any:
         )
     if isinstance(precond, splu.SpLUState):
         return splu.SpLUState(Lt=colmat, l3=row, U12=colmat, u3=row)
-    if isinstance(precond, splu.SpLUStreamState):
-        # kernel-layout streaming state (r5): corners replicate, padded
-        # tails shard over lanes exactly like the legacy columns (ntp is
-        # a BLKN multiple, divisible by any power-of-two shard degree)
-        return splu.SpLUStreamState(
-            L1t=rep, U1=rep, L2tp=colmat, U2p=colmat, l3p=row, u3p=row,
-            n=precond.n,
-        )
     if isinstance(precond, lra.LRAState):
         return lra.LRAState(UV=colmat, d=row)
     if isinstance(precond, (list, tuple)):  # kron: replicate every factor

@@ -2,9 +2,9 @@
 
 Jits `opt.step` with explicit in/out shardings so GSPMD partitions the
 whole step — forward, backward, Hvp, preconditioner update, apply — and
-inserts the ICI collectives (psum of grads/Hvps over `data`, psums of the
-r-sized reductions over `shard`). No NCCL-style hand-written communication:
-the sharding annotations ARE the distributed implementation.
+inserts the collectives (psum of grads/Hvps over `data`, psums of the
+r-sized reductions over `shard`). No hand-written communication: the
+sharding annotations ARE the distributed implementation.
 """
 from __future__ import annotations
 
@@ -37,9 +37,7 @@ def build_sharded_step(
     (SURVEY.md §2.4 TP row: the per-layer Kron factors stay replicated —
     they are small by design, ref README.md:54 — and the factor updates'
     statistical Grams A A^T / A^T A contract over the sharded axis, which
-    is exactly the "psum of cross-terms" the survey plans; the fused
-    kron kernels run replicated per device, with GSPMD gathering each
-    TP layer's probe at the shard_map boundary).
+    is exactly the "psum of cross-terms" the survey plans).
 
     Preconditioner state shards per family policy; every positional batch
     argument shards its leading axis over `data` (`batch_axes` selects
@@ -67,14 +65,7 @@ def build_sharded_step(
 
     def make(nargs: int):
         def step_sharded(params, state, key, *batch):
-            # trace-time: route family kernel calls through shard_map —
-            # pallas_call has no GSPMD partitioning rule, so the fused
-            # kernels ride the mesh explicitly (lane-sharded lra with
-            # psum'd rank-space reductions; replicated kron/dense)
-            from psgd_tf_tpu.ops import pallas as pallas_ops
-
-            with pallas_ops.sharding(mesh, axis="shard"):
-                return opt.step(loss_fn, params, state, key, *batch)
+            return opt.step(loss_fn, params, state, key, *batch)
 
         return jax.jit(
             step_sharded,

@@ -3,7 +3,7 @@
 Dense preconditioner with init scale 0.1, precond lr 0.2, param lr 0.5,
 500 iterations (ref :8, :25-27). The reference runs eager; here the whole
 step is one jitted function — the first-compile cost amortizes across the
-loop, and the same code runs on CPU or a TPU chip unchanged.
+loop, and the same code runs on the CPU or a GPU unchanged.
 """
 from __future__ import annotations
 

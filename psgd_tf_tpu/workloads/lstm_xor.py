@@ -44,7 +44,7 @@ def run(
         x, y = xor.batch(k_data, batch_size, seq_len)
         params, state, aux = step(params, state, k_step, x, y)
         # poll the device only every `check_every` steps so the host never
-        # serializes the TPU stream (the reference checks every iter, ref :71)
+        # serializes the device stream (the reference checks every iter, ref :71)
         if (it + 1) % check_every == 0:
             loss = float(aux["loss"])
             if loss < 0.1:  # ref :72

@@ -1,21 +1,13 @@
 """Golden-trajectory tests (SURVEY.md §4b).
 
-Independent float64 numpy oracles implement the reference's update
-equations (from the math contracts in SURVEY.md §0/§2.1 — dense C2,
-kron C6/C8/C10/C12, splu C14, UVd C17), and multi-step trajectories with
-*injected* probe sequences are compared against the fp32 JAX
-implementation. Injecting (v, h) and replicating the PRNG branch decisions
-factors TF-vs-JAX RNG divergence out of the comparison, per the survey's
-test strategy.
-
-The sparse-family oracles (arrow/diag kron factors, splu) deliberately use
-a DIFFERENT formulation than the implementation: each structured factor is
-materialized as a dense float64 matrix, the group gradient is computed
-with np.linalg solves on the dense forms, projected onto the factor's
-sparsity pattern, and the multiplicative update applied densely. The
-implementation's closed-form arrow inverses, elementwise diag shortcuts,
-and block algebra must all agree with this — a transcription error in
-either the clever form or the dense form cannot cancel.
+Multi-step trajectories with *injected* probe sequences, the fp32 JAX
+implementation against the independent float64 numpy oracles of
+`psgd_tf_tpu.oracles` (dense C2, kron C6/C8/C10/C12, splu C14, UVd C17).
+Injecting (v, h) and replicating the PRNG branch decisions factors
+TF-vs-JAX RNG divergence out of the comparison, per the survey's test
+strategy. The sparse-family oracles use a different formulation than the
+implementation (see the oracles module), so a transcription error in
+either form cannot cancel.
 """
 from functools import partial
 
@@ -24,182 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from psgd_tf_tpu import oracles
 from psgd_tf_tpu.groups import dense, kron, lra, splu
-from psgd_tf_tpu.ops import linalg
+from psgd_tf_tpu.oracles import dense_oracle, lra_oracle, splu_oracle
 
-TINY64 = float(np.nextafter(np.float32(0), np.float32(1)))  # fp32 subnormal
 STEPS = 20
 N = 24
-
-
-# ---------------------------------------------------------------- oracles
-
-def dense_oracle(Q, v, h, step):
-    """C2: a = Q h; b = Q^-T v; Q <- Q - step/(max|triu(aa'-bb')|+tiny) triu(..) Q."""
-    a = Q @ h
-    b = np.linalg.solve(Q.T, v)
-    grad = np.triu(np.outer(a, a) - np.outer(b, b))
-    step0 = step / (np.abs(grad).max() + TINY64)
-    return Q - step0 * (grad @ Q)
-
-
-def kron_dd_oracle(Ql, Qr, dX, dG, step):
-    """C6: balance by rho; A = Ql dG Qr'; Bt = Ql^-T dX Qr^-1; two triu grads."""
-    rho = np.sqrt(np.diagonal(Ql).max() / np.diagonal(Qr).max())
-    Ql, Qr = Ql / rho, rho * Qr
-    A = Ql @ dG @ Qr.T
-    Bt = np.linalg.solve(Ql.T, dX) @ np.linalg.inv(Qr)
-    g1 = np.triu(A @ A.T - Bt @ Bt.T)
-    g2 = np.triu(A.T @ A - Bt.T @ Bt)
-    s1 = step / (np.abs(g1).max() + TINY64)
-    s2 = step / (np.abs(g2).max() + TINY64)
-    return Ql - s1 * (g1 @ Ql), Qr - s2 * (g2 @ Qr)
-
-
-def lra_oracle(U, V, d, v, h, step, *, balance, update_u):
-    """C17: optional rebalance; Woodbury P^-1 v; diag grad; U-or-V update."""
-    if balance:
-        rho = np.sqrt(np.abs(U).max() / np.abs(V).max())
-        U, V = U / rho, rho * V
-
-    Qh = d * h + U @ (V.T @ (d * h))
-    Ph = d * (Qh + V @ (U.T @ Qh))
-    IpVtU = np.eye(U.shape[1]) + V.T @ U
-    invQtv = v / d
-    invQtv = invQtv - V @ np.linalg.solve(IpVtU.T, U.T @ invQtv)
-    invPv = (invQtv - U @ np.linalg.solve(IpVtU, V.T @ invQtv)) / d
-
-    nablaD = Ph * h - v * invPv
-    mu = step / (np.abs(nablaD).max() + TINY64)
-    new_d = d - mu * d * nablaD
-
-    a, b = Qh, invQtv
-    if update_u:
-        atV = a @ V
-        btV = b @ V
-        atVVt = V @ atV
-        btVVt = V @ btV
-        norm = np.sqrt(
-            np.abs(
-                (a @ a) * (atVVt @ atVVt)
-                + (b @ b) * (btVVt @ btVVt)
-                - 2.0 * (a @ b) * (atVVt @ btVVt)
-            )
-        )
-        mu = step / (norm + TINY64)
-        U = U - mu * (np.outer(a, atV @ IpVtU) - np.outer(b, btV @ IpVtU))
-    else:
-        atU = a @ U
-        btU = b @ U
-        norm = np.sqrt(
-            np.abs(
-                ((U @ atU) @ (U @ atU)) * (a @ a)
-                + ((U @ btU) @ (U @ btU)) * (b @ b)
-                - 2.0 * ((U @ atU) @ (U @ btU)) * (a @ b)
-            )
-        )
-        mu = step / (norm + TINY64)
-        V = V - mu * (np.outer(a + V @ atU, atU) - np.outer(b + V @ btU, btU))
-    return U, V, new_d
-
-
-# ---------------------------------------------- dense-materialized oracles
-
-def _arrow(ql0, ql1):
-    """Dense arrow matrix: diag(ql0) with last column [ql1[:-1]; ql0[-1]]."""
-    Q = np.diag(np.asarray(ql0, np.float64))
-    Q[:-1, -1] = ql1[:-1]
-    return Q
-
-
-def _project_arrow(M):
-    """Project a dense group gradient onto the arrow pattern
-    {diagonal, last column} (the bias entry at [-1, -1] is diagonal)."""
-    G = np.diag(np.diag(M)).astype(np.float64)
-    G[:-1, -1] += M[:-1, -1]
-    return G
-
-
-def kron_nd_oracle(Ql, Qr, dX, dG, step):
-    """C8 (norm, dense) on DENSE factors: balance, A = Ql dG Qr^T,
-    Bt = Ql^-T dX Qr^-1, arrow-projected left grad, triu right grad."""
-    rho = np.sqrt(np.diag(Ql).max() / np.diag(Qr).max())
-    Ql, Qr = Ql / rho, rho * Qr
-    A = Ql @ dG @ Qr.T
-    Bt = np.linalg.solve(Ql.T, dX) @ np.linalg.inv(Qr)
-    G1 = _project_arrow(A @ A.T - Bt @ Bt.T)
-    s1 = step / (np.abs(G1).max() + TINY64)
-    G2 = np.triu(A.T @ A - Bt.T @ Bt)
-    s2 = step / (np.abs(G2).max() + TINY64)
-    return Ql - s1 * (G1 @ Ql), Qr - s2 * (G2 @ Qr)
-
-
-def kron_ds_oracle(Ql, Qr, dX, dG, step):
-    """C10 (dense, scale) on DENSE factors: Qr is a materialized diagonal;
-    the right grad projects onto the diagonal."""
-    rho = np.sqrt(np.diag(Ql).max() / np.diag(Qr).max())
-    Ql, Qr = Ql / rho, rho * Qr
-    A = Ql @ dG @ Qr.T
-    Bt = np.linalg.solve(Ql.T, dX) @ np.linalg.inv(Qr)
-    G1 = np.triu(A @ A.T - Bt @ Bt.T)
-    s1 = step / (np.abs(G1).max() + TINY64)
-    G2 = np.diag(np.diag(A.T @ A - Bt.T @ Bt))
-    s2 = step / (np.abs(G2).max() + TINY64)
-    return Ql - s1 * (G1 @ Ql), Qr - s2 * (G2 @ Qr)
-
-
-def kron_ns_oracle(Ql, Qr, dX, dG, step):
-    """C12 (norm, scale) on DENSE factors — the sparsest pair."""
-    rho = np.sqrt(np.diag(Ql).max() / np.diag(Qr).max())
-    Ql, Qr = Ql / rho, rho * Qr
-    A = Ql @ dG @ Qr.T
-    Bt = np.linalg.solve(Ql.T, dX) @ np.linalg.inv(Qr)
-    G1 = _project_arrow(A @ A.T - Bt @ Bt.T)
-    s1 = step / (np.abs(G1).max() + TINY64)
-    G2 = np.diag(np.diag(A.T @ A - Bt.T @ Bt))
-    s2 = step / (np.abs(G2).max() + TINY64)
-    return Ql - s1 * (G1 @ Ql), Qr - s2 * (G2 @ Qr)
-
-
-def _project_splu_l(M, r):
-    """L pattern: lower-tri r x r corner, full lower-left block, diag tail."""
-    G = np.zeros_like(M)
-    G[:r, :r] = np.tril(M[:r, :r])
-    G[r:, :r] = M[r:, :r]
-    G[r:, r:] = np.diag(np.diag(M[r:, r:]))
-    return G
-
-
-def _project_splu_u(M, r):
-    """U pattern: upper-tri r x r corner, full upper-right block, diag tail."""
-    G = np.zeros_like(M)
-    G[:r, :r] = np.triu(M[:r, :r])
-    G[:r, r:] = M[:r, r:]
-    G[r:, r:] = np.diag(np.diag(M[r:, r:]))
-    return G
-
-
-def splu_oracle(L, U, r, v, h, step):
-    """C14 on DENSE L, U: balance; Q = L U; the four probe images via dense
-    solves; pattern-projected group grads; L <- L - s (G_L L),
-    U <- U - s (U G_U) with joint max-abs steps (ref :396-480)."""
-    rho = np.sqrt(np.diag(L).max() / np.diag(U).max())
-    L, U = L / rho, rho * U
-    Q = L @ U
-    P = Q.T @ Q
-    Qg = Q @ h
-    iQtx = np.linalg.solve(Q.T, v)
-    Pg = P @ h
-    iPx = np.linalg.solve(P, v)
-
-    GL = _project_splu_l(np.outer(Qg, Qg) - np.outer(iQtx, iQtx), r)
-    sL = step / (np.abs(GL).max() + TINY64)
-    newL = L - sL * (GL @ L)
-
-    GU = _project_splu_u(np.outer(Pg, h) - np.outer(v, iPx), r)
-    sU = step / (np.abs(GU).max() + TINY64)
-    newU = U - sU * (U @ GU)
-    return newL, newU
 
 
 # ------------------------------------------------------------ trajectories
@@ -233,7 +55,7 @@ def test_kron_dd_trajectory_matches_oracle():
         dX = rng.standard_normal((m, n))
         dG = rng.standard_normal((m, n))
         state = upd(state, jnp.asarray(dX, jnp.float32), jnp.asarray(dG, jnp.float32))
-        Ql64, Qr64 = kron_dd_oracle(Ql64, Qr64, dX, dG, 0.05)
+        Ql64, Qr64 = oracles.kron_oracle(("dense", "dense"), Ql64, Qr64, dX, dG, 0.05)
     for got, want in ((state.ql, Ql64), (state.qr, Qr64)):
         rel = np.abs(np.asarray(got) - want).max() / np.abs(want).max()
         assert rel < 5e-4, rel
@@ -267,20 +89,8 @@ def test_lra_trajectory_matches_oracle():
         assert rel < 1e-3, rel
 
 
-_SPARSE_KRON = {
-    ("norm", "dense"): kron_nd_oracle,
-    ("dense", "scale"): kron_ds_oracle,
-    ("norm", "scale"): kron_ns_oracle,
-}
-
-
-def _factor_to_dense64(fmt, q):
-    q = np.asarray(q, np.float64)
-    if fmt == "dense":
-        return q
-    if fmt == "scale":
-        return np.diag(q)
-    return _arrow(q[0], q[1])
+_SPARSE_KRON = [("norm", "dense"), ("dense", "scale"), ("norm", "scale")]
+_factor_to_dense64 = oracles.factor_to_oracle
 
 
 @pytest.mark.parametrize("fmt", sorted(_SPARSE_KRON), ids=str)
@@ -291,7 +101,7 @@ def test_sparse_kron_trajectory_matches_oracle(fmt):
     state = kron.init((m, n), fmt=fmt, init_scale=0.8)
     Ql64 = _factor_to_dense64(fmt[0], state.ql)
     Qr64 = _factor_to_dense64(fmt[1], state.qr)
-    oracle = _SPARSE_KRON[fmt]
+    oracle = partial(oracles.kron_oracle, fmt)
     rng = np.random.default_rng(5)
     upd = jax.jit(partial(kron.update, step=0.05))
     for _ in range(STEPS):
@@ -311,7 +121,7 @@ def test_sparse_kron_trajectory_matches_oracle(fmt):
         off[:-1, -1] = 0.0
         assert np.abs(off).max() < 1e-12
     if fmt[1] == "scale":
-        assert np.abs(Qr64 - np.diag(np.diag(Qr64))).max() < 1e-12
+        assert Qr64.ndim == 1  # a diagonal factor stays a vector
 
 
 @pytest.mark.parametrize("fmt", [("dense", "norm"), ("scale", "dense"), ("scale", "norm")], ids=str)
@@ -324,7 +134,7 @@ def test_mirror_kron_trajectory_matches_transposed_oracle(fmt):
     # oracle runs the implemented sibling on (n, m) transposed data
     Qr64 = _factor_to_dense64(fmt[1], state.qr)   # left of the mirror
     Ql64 = _factor_to_dense64(fmt[0], state.ql)   # right of the mirror
-    oracle = _SPARSE_KRON[mirror]
+    oracle = partial(oracles.kron_oracle, mirror)
     rng = np.random.default_rng(6)
     upd = jax.jit(partial(kron.update, step=0.05))
     for _ in range(STEPS):

@@ -359,74 +359,43 @@ def test_kron_auto_format():
     assert kron.auto_format((2000, 2000)) == ("norm", "scale")
 
 
-# ------------------------------------------------- splu stream layout (r5)
+# ------------------------------------------------ splu at a wider state
 
-def _force_stream_init(n, rank):
-    """splu.init at a CPU-tractable size with the streaming layout forced
-    (fits() gates on the VMEM budget, which small test sizes satisfy)."""
-    from unittest import mock
+def _splu_wide_case(n, r, seed):
+    from psgd_tf_tpu import oracles
 
-    from psgd_tf_tpu.ops.pallas import splu_one
+    Lt, l3, U12, u3 = oracles.random_splu(np.random.default_rng(seed), n, r)
+    st = splu.SpLUState(Lt=jnp.asarray(Lt), l3=jnp.asarray(l3),
+                        U12=jnp.asarray(U12), u3=jnp.asarray(u3))
+    key = jax.random.PRNGKey(seed)
+    v, h, g = (jax.random.normal(jax.random.fold_in(key, i), (n,)) for i in range(3))
+    return st, v, h, g
 
-    with mock.patch.object(splu_one, "fits", lambda r, n_: False):
-        return splu.init(n, rank=rank)
 
-
-def test_splu_stream_state_views_and_fallback():
-    """SpLUStreamState (kernel-layout padded fields, r5): the legacy
-    views must reproduce a legacy state exactly, and the kernels-off
-    fallback (legacy math + repack) must match the legacy trajectory
-    leaf-for-leaf, maintaining the pad invariant l3p * u3p == 1."""
-    from psgd_tf_tpu.ops import pallas as pallas_ops
+def test_splu_wide_update_matches_oracle():
+    """A 3000-parameter rank-5 state: the block algebra against the dense
+    float64 oracle, every block measured against the size of the step."""
+    from psgd_tf_tpu import oracles
 
     n, r = 3000, 5
-    st = _force_stream_init(n, r)
-    assert isinstance(st, splu.SpLUStreamState)
-    assert st.L2tp.shape == (8, 8192) and st.l3p.shape == (8192,)
-
-    key = jax.random.PRNGKey(0)
-    v, h, g = (jax.random.normal(jax.random.fold_in(key, i), (n,))
-               for i in range(3))
-    leg = splu.SpLUState(Lt=st.Lt, l3=st.l3, U12=st.U12, u3=st.u3)
-    with pallas_ops.disabled():
-        ref = splu.update(leg, v, h, step=0.05)
-        ref_pre = splu.apply(ref, g)
-        st2 = splu.update(st, v, h, step=0.05)
-        pre2 = splu.apply(st2, g)
-    np.testing.assert_array_equal(np.asarray(st2.Lt), np.asarray(ref.Lt))
-    np.testing.assert_array_equal(np.asarray(st2.l3), np.asarray(ref.l3))
-    np.testing.assert_array_equal(np.asarray(pre2), np.asarray(ref_pre))
-    pads = np.asarray(st2.l3p[n - r:] * st2.u3p[n - r:])
-    np.testing.assert_allclose(pads, 1.0, rtol=1e-6)
+    st, v, h, _ = _splu_wide_case(n, r, 0)
+    got = jax.jit(lambda s, v, h: splu.update(s, v, h, step=0.05))(st, v, h)
+    f64 = lambda x: np.asarray(x, np.float64)
+    want = oracles.splu_blocks(*oracles.splu_oracle(
+        *oracles.splu_dense(st), r, f64(v), f64(h), 0.05), r)
+    base = oracles.splu_blocks(*oracles.splu_dense(st), r)
+    scale = max(np.abs(w - b).max() for w, b in zip(want, base))
+    for g, w in zip((got.Lt, got.l3, got.U12, got.u3), want):
+        assert np.abs(f64(g) - w).max() / scale < 1e-3
 
 
-def test_splu_stream_kernel_matches_oracle():
-    """fused_update_stream (zero-copy padded entry) vs the legacy XLA
-    path, including the fused P' g and the pad-lane product invariant."""
-    from psgd_tf_tpu.ops import linalg
-    from psgd_tf_tpu.ops import pallas as pallas_ops
-    from psgd_tf_tpu.ops.pallas import splu_upd
-
+def test_splu_wide_apply_matches_materialized():
+    """At n = 3000, apply() of an updated state equals the materialized
+    P' g."""
     n, r = 3000, 5
-    st = _force_stream_init(n, r)
-    key = jax.random.PRNGKey(3)
-    v, h, g = (jax.random.normal(jax.random.fold_in(key, i), (n,))
-               for i in range(3))
-    leg = splu.SpLUState(Lt=st.Lt, l3=st.l3, U12=st.U12, u3=st.u3)
-    with pallas_ops.disabled():
-        ref = splu.update(leg, v, h, step=0.05)
-        ref_pre = splu.apply(ref, g)
-    out = splu_upd.fused_update_stream(
-        st.L1t, st.U1, st.L2tp, st.U2p, st.l3p, st.u3p, st.n, v, h,
-        0.05, linalg.tiny(jnp.float32), interpret=True, g=g)
-    got = st.replace(L1t=out[0], U1=out[1], L2tp=out[2], U2p=out[3],
-                     l3p=out[4], u3p=out[5])
-    for a, b in ((got.Lt, ref.Lt), (got.U12, ref.U12), (got.l3, ref.l3),
-                 (got.u3, ref.u3), (out[6], ref_pre)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-5, atol=2e-6)
-    pads = np.asarray(out[4][n - r:] * out[5][n - r:])
-    np.testing.assert_allclose(pads, 1.0, rtol=1e-6)
-    # and the padded-field XLA apply agrees on the kernel-updated state
-    np.testing.assert_allclose(np.asarray(splu.apply(got, g)),
-                               np.asarray(ref_pre), rtol=2e-5, atol=2e-6)
+    st, v, h, g = _splu_wide_case(n, r, 3)
+    ref = jax.jit(lambda s, v, h: splu.update(s, v, h, step=0.05))(st, v, h)
+    pre = jax.jit(splu.apply)(ref, g)
+    P = np.asarray(splu.materialize(ref), np.float64)
+    want = P @ np.asarray(g, np.float64)
+    assert np.abs(np.asarray(pre) - want).max() / np.abs(want).max() < 1e-4

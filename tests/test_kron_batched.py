@@ -1,21 +1,22 @@
 """Batched (dense, dense) Kron path: parity vs the per-layer ops.
 
-The batched path (groups/kron.py BatchedDDState) stacks same-bucket layers
-padded with exact identity extensions; every result must match the
-per-layer path to fp32 tolerance, including through the full optimizer.
+The batched path (groups/kron.py BatchedDDState) stacks layers of one
+shape and vmaps the per-layer update and apply; every result must match
+the per-layer path to fp32 tolerance, including through the full
+optimizer.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psgd_tf_tpu import PSGD
+from psgd_tf_tpu import PSGD, oracles
 from psgd_tf_tpu.groups import kron
-from psgd_tf_tpu.ops import linalg
-from psgd_tf_tpu.ops.pallas import kron_dd
 from psgd_tf_tpu.optim.psgd import KronPrecond
 
-SHAPES = [(26, 6), (121, 84), (85, 10), (100, 128)]
+SHAPE, COUNT = (121, 84), 4
+# the optimizer buckets layers of identical shape
+BUCKET_SHAPES = [(26, 6), (26, 6), (85, 10), (85, 10)]
 
 
 def _probes(key, shapes, salt=0):
@@ -27,28 +28,26 @@ def _probes(key, shapes, salt=0):
 
 def test_update_batched_matches_per_layer():
     key = jax.random.PRNGKey(0)
-    bst = kron.init_batched(tuple(SHAPES))
-    singles = [kron.init(s, ("dense", "dense")) for s in SHAPES]
+    shapes = [SHAPE] * COUNT
+    bst = kron.init_batched(SHAPE, COUNT)
+    singles = [kron.init(s, ("dense", "dense")) for s in shapes]
     for it in range(4):
-        dXs, dGs = _probes(key, SHAPES, salt=it)
+        dXs, dGs = _probes(key, shapes, salt=it)
         bst = kron.update_batched(bst, dXs, dGs, step=0.1)
         singles = [
             kron.update(s, x, g, step=0.1)
             for s, x, g in zip(singles, dXs, dGs)
         ]
-    for u, s, (m, n) in zip(kron.unbatch(bst), singles, SHAPES):
+    for u, s in zip(kron.unbatch(bst), singles):
         np.testing.assert_allclose(u.ql, s.ql, atol=2e-5)
         np.testing.assert_allclose(u.qr, s.qr, atol=2e-5)
-        # identity padding must stay exact (not merely close)
-        S = bst.ql.shape[1]
-        pad_rows = np.asarray(bst.ql[0])[SHAPES[0][0]:, :]
-        np.testing.assert_array_equal(pad_rows, np.eye(S)[SHAPES[0][0]:, :])
 
 
 def test_apply_batched_matches_per_layer():
     key = jax.random.PRNGKey(1)
-    bst = kron.init_batched(tuple(SHAPES))
-    dXs, dGs = _probes(key, SHAPES)
+    shapes = [SHAPE] * COUNT
+    bst = kron.init_batched(SHAPE, COUNT)
+    dXs, dGs = _probes(key, shapes)
     bst = kron.update_batched(bst, dXs, dGs, step=0.2)
     singles = kron.unbatch(bst)
     pre_b = kron.apply_batched(bst, dGs)
@@ -56,24 +55,22 @@ def test_apply_batched_matches_per_layer():
         np.testing.assert_allclose(p, kron.apply(s, g), atol=2e-4)
 
 
-def test_gridded_pallas_matches_vmap_xla():
+@pytest.mark.parametrize("shape", [(26, 6), (121, 84)])
+def test_vmapped_update_matches_oracle(shape):
+    """The vmapped update, each stacked layer against the float64 oracle."""
     key = jax.random.PRNGKey(2)
-    bst = kron.init_batched(tuple(SHAPES))
-    dXs, dGs = _probes(key, SHAPES)
-    S, T = bst.ql.shape[1], bst.qr.shape[1]
-    dx = kron.stack_padded(dXs, S, T)
-    dg = kron.stack_padded(dGs, S, T)
-    ms = jnp.asarray([m for m, _ in SHAPES], jnp.int32)
-    ns = jnp.asarray([n for _, n in SHAPES], jnp.int32)
-    t = linalg.tiny(jnp.float32)
-    ql_p, qr_p = kron_dd.fused_update_batched(
-        bst.ql, bst.qr, dx, dg, ms, ns, 0.1, t, interpret=True
-    )
-    ql_x, qr_x = jax.vmap(
-        kron._update_dd_padded, in_axes=(0, 0, 0, 0, 0, 0, None, None)
-    )(bst.ql, bst.qr, dx, dg, ms, ns, jnp.float32(0.1), t)
-    np.testing.assert_allclose(ql_p, ql_x, atol=1e-5)
-    np.testing.assert_allclose(qr_p, qr_x, atol=1e-5)
+    shapes = [shape] * 3
+    bst = kron.init_batched(shape, len(shapes), init_scale=0.8)
+    dXs, dGs = _probes(key, shapes)
+    new = jax.jit(lambda b, x, g: kron.update_batched(b, x, g, step=0.1))(bst, dXs, dGs)
+    m, n = shape
+    q0l, q0r = 0.8 * np.eye(m), 0.8 * np.eye(n)
+    for i in range(len(shapes)):
+        want = oracles.kron_oracle(("dense", "dense"), q0l, q0r,
+                                   np.asarray(dXs[i], np.float64),
+                                   np.asarray(dGs[i], np.float64), 0.1)
+        for got, w, b in ((new.ql[i], want[0], q0l), (new.qr[i], want[1], q0r)):
+            assert oracles.delta_error(got, w, b) < 1e-3
 
 
 @pytest.mark.parametrize("formats", [
@@ -84,7 +81,7 @@ def test_optimizer_batched_trajectory_matches_unbatched(formats):
     key = jax.random.PRNGKey(3)
     params = [
         0.1 * jax.random.normal(jax.random.fold_in(key, i), s)
-        for i, s in enumerate(SHAPES)
+        for i, s in enumerate(BUCKET_SHAPES)
     ]
 
     def loss(p):

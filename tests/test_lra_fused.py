@@ -1,14 +1,17 @@
-"""Fused LRA update kernel vs the XLA path (interpret mode on CPU)."""
+"""The LRA family's update, and update followed by apply, against the float64 oracle
+(`psgd_tf_tpu.oracles.lra_oracle`), with the PRNG branch decisions
+replicated."""
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from psgd_tf_tpu import oracles
 from psgd_tf_tpu.groups import lra
-from psgd_tf_tpu.ops import linalg
-from psgd_tf_tpu.ops.pallas import lra_upd
 
-TINY = linalg.tiny(jnp.float32)
+TOL = 1e-3  # fp32 one-step error, measured against the size of the step
 
 
 def _case(n, r, seed):
@@ -19,83 +22,77 @@ def _case(n, r, seed):
     return state, v, h, jax.random.PRNGKey(seed + 100)
 
 
+def _branches(key):
+    """The coins lra.update draws from `key`: (balance, update_u)."""
+    k_bal, k_uv = jax.random.split(key)
+    return (bool(jax.random.uniform(k_bal) < 0.01),
+            bool(jax.random.uniform(k_uv) < 0.5))
+
+
+def _oracle(state, v, h, key, step=0.05):
+    balance, update_u = _branches(key)
+    f64 = lambda x: np.asarray(x, np.float64)
+    return oracles.lra_oracle(f64(state.U).T, f64(state.V).T, f64(state.d),
+                              f64(v), f64(h), step, balance=balance,
+                              update_u=update_u)
+
+
+def _assert_matches(got, state, want):
+    U, V, d = want
+    for g, w, b in ((got.U.T, U, state.U.T), (got.V.T, V, state.V.T), (got.d, d, state.d)):
+        assert oracles.delta_error(g, w, b) < TOL
+
+
 @pytest.mark.parametrize("n,r,seed", [(1000, 4, 1), (10000, 10, 2), (300, 3, 4), (8192, 16, 5)])
-def test_fused_matches_xla_path(n, r, seed):
+def test_update_matches_oracle(n, r, seed):
     state, v, h, k = _case(n, r, seed)
-    ref = lra.update(state, v, h, 0.05, k)
-    got = lra_upd.fused_update(state.UV, state.d, v, h, 0.05, k, TINY, interpret=True)
-    for g, want in zip(got, (ref.UV, ref.d)):
-        scale = float(jnp.max(jnp.abs(want)))
-        np.testing.assert_allclose(np.asarray(g), np.asarray(want), rtol=0, atol=3e-5 * scale)
+    got = jax.jit(partial(lra.update, step=0.05))(state, v, h, key=k)
+    _assert_matches(got, state, _oracle(state, v, h, k))
 
 
-def test_fused_matches_on_balance_branch():
-    """Find a key whose first split fires the 1% rebalance and compare."""
-    kk = None
+def _balance_key():
     for i in range(3000):
         cand = jax.random.PRNGKey(100000 + i)
-        k_bal, _ = jax.random.split(cand)
-        if float(jax.random.uniform(k_bal)) < 0.01:
-            kk = cand
-            break
-    assert kk is not None
+        if _branches(cand)[0]:
+            return cand
+    raise AssertionError("no key fires the 1% rebalance in 3000 tries")
+
+
+def test_update_matches_oracle_on_balance_branch():
+    """A key whose first split fires the 1% rebalance, on factors whose
+    ranges differ (rho != 1)."""
+    kk = _balance_key()
     state, v, h, _ = _case(500, 5, 9)
-    state = lra.pack(state.U * 3.0, state.V, state.d)  # imbalance so rho != 1
-    ref = lra.update(state, v, h, 0.05, kk)
-    got = lra_upd.fused_update(state.UV, state.d, v, h, 0.05, kk, TINY, interpret=True)
-    for g, want in zip(got, (ref.UV, ref.d)):
-        scale = float(jnp.max(jnp.abs(want)))
-        np.testing.assert_allclose(np.asarray(g), np.asarray(want), rtol=0, atol=3e-5 * scale)
+    state = lra.pack(state.U * 3.0, state.V, state.d)
+    got = lra.update(state, v, h, 0.05, kk)
+    _assert_matches(got, state, _oracle(state, v, h, kk))
 
 
-def test_fused_covers_both_uv_branches():
-    """Across seeds both the U-branch and V-branch must be exercised."""
+def test_update_covers_both_uv_branches():
+    """Across seeds both the U-branch and the V-branch run and match."""
     state, v, h, _ = _case(400, 4, 3)
+    upd = jax.jit(partial(lra.update, step=0.05))
     hit = set()
     for seed in range(6):
         k = jax.random.PRNGKey(seed)
-        _, k_uv = jax.random.split(k)
-        hit.add(bool(jax.random.uniform(k_uv) < 0.5))
-        ref = lra.update(state, v, h, 0.05, k)
-        got = lra_upd.fused_update(state.UV, state.d, v, h, 0.05, k, TINY, interpret=True)
-        for g, want in zip(got, (ref.UV, ref.d)):
-            scale = float(jnp.max(jnp.abs(want)))
-            np.testing.assert_allclose(np.asarray(g), np.asarray(want), rtol=0, atol=3e-5 * scale)
+        hit.add(_branches(k)[1])
+        _assert_matches(upd(state, v, h, key=k), state, _oracle(state, v, h, k))
     assert hit == {True, False}
 
 
-@pytest.mark.parametrize("n,r", [(64, 4), (100, 5), (257, 3)])
-def test_fused_update_apply_matches_sequence(n, r):
-    """The fused update+apply (apply Gram rides stage 3, one map pass)
-    must equal update() followed by apply() of the updated state."""
-    key = jax.random.PRNGKey(2)
+@pytest.mark.parametrize("n,r,seed", [(64, 4, 2), (100, 5, 2), (257, 3, 2), (48, 4, 5)])
+def test_update_apply_matches_oracle(n, r, seed):
+    """update() then apply(): the new state and P' g of the NEW state."""
+    key = jax.random.PRNGKey(seed)
     st = lra.init(key, n, rank=r)
-    v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
-    h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
-    g = jax.random.normal(jax.random.fold_in(key, 3), (n,))
+    v, h, g = (jax.random.normal(jax.random.fold_in(key, i), (n,)) for i in (1, 2, 3))
     k_up = jax.random.fold_in(key, 4)
-    st2 = lra.update(st, v, h, step=0.05, key=k_up)  # XLA path on CPU
-    pre_ref = lra.apply(st2, g)
-    got = lra_upd.fused_update_apply(
-        st.UV, st.d, v, h, g, 0.05, k_up, TINY, interpret=True
-    )
-    for a, b in zip(got, (st2.UV, st2.d, pre_ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5, atol=2e-6)
 
+    def update_apply(st, v, h, g, k):
+        new = lra.update(st, v, h, step=0.05, key=k)
+        return new, lra.apply(new, g)
 
-def test_group_update_apply_xla_fallback_equals_sequence():
-    """groups.lra.update_apply on CPU (no kernels) is exactly the two-call
-    sequence."""
-    key = jax.random.PRNGKey(5)
-    n, r = 48, 4
-    st = lra.init(key, n, rank=r)
-    v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
-    h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
-    g = jax.random.normal(jax.random.fold_in(key, 3), (n,))
-    k_up = jax.random.fold_in(key, 4)
-    st_a, pre_a = lra.update_apply(st, v, h, g, step=0.05, key=k_up)
-    st_b = lra.update(st, v, h, step=0.05, key=k_up)
-    pre_b = lra.apply(st_b, g)
-    for a, b in zip(jax.tree_util.tree_leaves((st_a, pre_a)),
-                    jax.tree_util.tree_leaves((st_b, pre_b))):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    got, pre = jax.jit(update_apply)(st, v, h, g, k_up)
+    want = _oracle(st, v, h, k_up)
+    _assert_matches(got, st, want)
+    assert oracles.rel_error(pre, oracles.lra_apply(*want, np.asarray(g, np.float64))) < 1e-5

@@ -2,8 +2,7 @@
 
 The dryrun itself (tools/multiproc_dryrun.py) spawns 2 worker processes
 x 4 CPU devices over Gloo and validates sharded trajectories + the orbax
-per-host-shard checkpoint roundtrip — see its docstring and VALIDATION.md
-"Multi-process dryrun". It takes ~2-3 minutes of wall clock and cannot
+per-host-shard checkpoint roundtrip — see its docstring. It takes ~2-3 minutes of wall clock and cannot
 run INSIDE this pytest process (the workers need their own JAX runtimes
 wired by `jax.distributed.initialize`, and this process has already
 initialized a backend), so the test shells out.

@@ -103,10 +103,9 @@ def test_sharded_full_step_matches_single_device(family, mesh):
 
 
 def test_sharded_kron_multi_step_matches_single_device(mesh):
-    """An MLP with 3 heterogeneous (dense, dense) layers — below the
-    bucketed-batch crossover, so the optimizer routes them through
-    kron.update_multi's ONE-launch kernel (replicated shard_map under the
-    mesh, interpret mode here). Sharded step must match single-device."""
+    """An MLP with 3 heterogeneous (dense, dense) layers through
+    kron.update_multi (replicated factors under the mesh). Sharded step
+    must match single-device."""
     key = jax.random.PRNGKey(5)
     shapes = [(9, 12), (12, 7), (7, 3)]
     params = [
@@ -141,102 +140,95 @@ def test_sharded_kron_multi_step_matches_single_device(mesh):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=5e-4, atol=5e-5)
 
 
+def _lra_oracle_step(st, v, h, key):
+    from psgd_tf_tpu import oracles
+
+    k_bal, k_uv = jax.random.split(key)
+    f64 = lambda x: np.asarray(x, np.float64)
+    return oracles.lra_oracle(
+        f64(st.U).T, f64(st.V).T, f64(st.d), f64(v), f64(h), 0.05,
+        balance=bool(jax.random.uniform(k_bal) < 0.01),
+        update_u=bool(jax.random.uniform(k_uv) < 0.5))
+
+
+def _sharded_lra_update(mesh, st, v, h, k):
+    """lra.update jitted with the family's sharding policy on the mesh
+    (state and probes over `shard`, constrained inside the jit so widths
+    the mesh does not divide are padded by GSPMD)."""
+    from psgd_tf_tpu.groups import lra
+
+    sh = precond_sharding(mesh, st)
+    vec = NamedSharding(mesh, P("shard"))
+
+    def fn(st, v, h, k):
+        st = jax.lax.with_sharding_constraint(st, sh)
+        v = jax.lax.with_sharding_constraint(v, vec)
+        h = jax.lax.with_sharding_constraint(h, vec)
+        out = lra.update(st, v, h, step=0.05, key=k)
+        return jax.lax.with_sharding_constraint(out, sh)
+
+    return jax.jit(fn)(st, v, h, k)
+
+
+def _check_sharded_lra(mesh, n, rank, seed):
+    from psgd_tf_tpu import oracles
+    from psgd_tf_tpu.groups import lra
+
+    key = jax.random.PRNGKey(seed)
+    st = lra.init(key, n, rank=rank)
+    v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
+    h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
+    k_up = jax.random.fold_in(key, 3)
+    got = _sharded_lra_update(mesh, st, v, h, k_up)
+    U, V, d = _lra_oracle_step(st, v, h, k_up)
+    for g, w, b in ((got.U.T, U, st.U.T), (got.V.T, V, st.V.T), (got.d, d, st.d)):
+        assert oracles.delta_error(g, w, b) < 1e-3
+
+
 @pytest.mark.parametrize("n,rank", [(64, 4), (100, 5), (257, 3)])
-def test_sharded_fused_lra_matches_xla_oracle(mesh, n, rank):
-    """The shard_map'd fused kernel (psum'd rank-space reductions) must
-    reproduce the XLA path bit-for-bit up to reduction order — including
-    lane counts that don't divide the mesh (pad path)."""
+def test_sharded_lra_update_matches_oracle(mesh, n, rank):
+    """The GSPMD-partitioned lra update (psum'd rank-space reductions)
+    against the float64 oracle — including widths the mesh does not
+    divide."""
+    _check_sharded_lra(mesh, n, rank, seed=1)
+
+
+def test_sharded_lra_update_matches_oracle_wide(mesh):
+    """The same at 65536 parameters (16384 per device)."""
+    _check_sharded_lra(mesh, 65536, 3, seed=9)
+
+
+def test_sharded_lra_update_moves_only_rank_space_data(mesh):
+    """Design invariant of the lra sharding policy: the partitioned update
+    exchanges only rank-space quantities — all-reduces of at most (2r+2)^2
+    elements, and no gather, all-to-all or permute of the O(n) state."""
+    import re
+
     from psgd_tf_tpu.groups import lra
-    from psgd_tf_tpu.ops import linalg
-    from psgd_tf_tpu.ops.pallas import lra_upd
 
-    key = jax.random.PRNGKey(1)
+    n, rank = 4096, 4
+    key = jax.random.PRNGKey(3)
     st = lra.init(key, n, rank=rank)
-    v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
-    h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
-    k_up = jax.random.fold_in(key, 3)
-    ref = lra.update(st, v, h, step=0.05, key=k_up)  # XLA path on CPU
-
+    vec = NamedSharding(mesh, P("shard"))
+    sh = precond_sharding(mesh, st)
     fn = jax.jit(
-        lambda UV, d, v, h, k: lra_upd.fused_update_sharded(
-            UV, d, v, h, 0.05, k, linalg.tiny(jnp.float32),
-            mesh=mesh, axis="shard", interpret=True,
-        )
+        lambda st, v, h, k: lra.update(st, v, h, step=0.05, key=k),
+        in_shardings=(sh, vec, vec, NamedSharding(mesh, P())),
+        out_shardings=sh,
     )
-    got = fn(st.UV, st.d, v, h, k_up)
-    for a, b in zip(got, (ref.UV, ref.d)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-5, atol=2e-6)
+    v = jnp.ones((n,))
+    hlo = fn.lower(st, v, v, key).compile().as_text()
+    assert not re.search(r"all-gather|all-to-all|collective-permute", hlo)
+    sizes = []
+    for shape in re.findall(r"= \(?([a-z0-9]+\[[0-9,]*\][^ ]*)\)? all-reduce", hlo):
+        dims = re.search(r"\[([0-9,]*)\]", shape).group(1)
+        sizes.append(int(np.prod([int(x) for x in dims.split(",") if x] or [1])))
+    assert sizes and max(sizes) <= (2 * rank + 2) ** 2, sizes
 
 
-def test_pipelined_sharded_lra_matches_oracle(mesh):
-    """The ppermute-ring pipelined variant (chunked stage-1 Grams,
-    parallel/overlap.py) must match both the plain psum'd sharded kernel
-    and the XLA oracle. n is sized so each device's lane block splits
-    into >= 2 chunks (the pipeline actually engages)."""
-    from psgd_tf_tpu.groups import lra
-    from psgd_tf_tpu.ops import linalg
-    from psgd_tf_tpu.ops.pallas import lra_upd
-
-    n, rank = 65536, 3
-    key = jax.random.PRNGKey(9)
-    st = lra.init(key, n, rank=rank)
-    v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
-    h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
-    k_up = jax.random.fold_in(key, 3)
-    ref = lra.update(st, v, h, step=0.05, key=k_up)  # XLA path on CPU
-
-    def run(pipelined):
-        return jax.jit(
-            lambda UV, d, v, h, k: lra_upd.fused_update_sharded(
-                UV, d, v, h, 0.05, k, linalg.tiny(jnp.float32),
-                mesh=mesh, axis="shard", interpret=True,
-                pipelined=pipelined,
-            )
-        )(st.UV, st.d, v, h, k_up)
-
-    got_pipe = run(True)
-    got_plain = run(False)
-    for a, b, c in zip(got_pipe, got_plain, (ref.UV, ref.d)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-6, atol=1e-7)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(c), rtol=2e-5, atol=2e-6)
-
-
-def test_ring_reduce_matches_psum(mesh):
-    """overlap.ring_reduce/_max == lax.psum/pmax on the virtual mesh."""
-    from psgd_tf_tpu.parallel import overlap
-
-    n_dev = mesh.shape["shard"]
-    x = jnp.arange(32, dtype=jnp.float32).reshape(4, 8)
-    xs = jnp.stack([x + i for i in range(n_dev)])
-
-    def local(xb):
-        ring = overlap.ring_reduce(xb, "shard", n_dev)
-        rmax = overlap.ring_max(xb, "shard", n_dev)
-        return ring - jax.lax.psum(xb, "shard"), rmax - jax.lax.pmax(xb, "shard")
-
-    d_ring, d_max = jax.shard_map(
-        local, mesh=mesh, in_specs=P("shard"), out_specs=P("shard"),
-    )(xs.reshape(n_dev * 4, 8))
-    assert float(jnp.max(jnp.abs(d_ring))) == 0.0
-    assert float(jnp.max(jnp.abs(d_max))) == 0.0
-
-
-def test_sharding_ctx_routes_lra_to_sharded_kernel(mesh, monkeypatch):
-    """build_sharded_step's trace must hit the shard_map'd kernel, not the
-    XLA fallback (the round-1 blanket pallas disable is gone)."""
-    from psgd_tf_tpu.ops import pallas as pallas_ops
-    from psgd_tf_tpu.ops.pallas import lra_upd
-
-    calls = []
-    orig = lra_upd.fused_update_apply_sharded
-
-    def spy(*args, **kw):
-        calls.append(kw.get("mesh"))
-        return orig(*args, **kw)
-
-    # the optimizer's with-update branch takes the fused update+apply path
-    monkeypatch.setattr(lra_upd, "fused_update_apply_sharded", spy)
-
+def test_sharded_step_keeps_lra_state_sharded(mesh):
+    """build_sharded_step on lra: the step matches the single-device step
+    and hands the state back sharded by the family policy."""
     key = jax.random.PRNGKey(0)
     params = {"w": jax.random.normal(key, (40,))}
     opt = psgd.PSGD(preconditioner="lra", rank=3, lr_params=0.05)
@@ -246,15 +238,19 @@ def test_sharding_ctx_routes_lra_to_sharded_kernel(mesh, monkeypatch):
         return jnp.sum((x @ p["w"]) ** 2)
 
     x = jax.random.normal(jax.random.fold_in(key, 2), (16, 40))
+    k = jax.random.fold_in(key, 3)
     step = build_sharded_step(opt, loss, mesh, state, params, donate=False)
-    _, _, aux = step(params, state, jax.random.fold_in(key, 3), x)
-    assert calls and calls[0] is mesh
-    assert jnp.isfinite(aux["loss"])
+    p, s, aux = step(params, state, k, x)
+    p1, _, aux1 = jax.jit(partial(opt.step, loss))(params, state, k, x)
+    assert s.precond.UV.sharding.spec == P(None, "shard")
+    assert s.precond.d.sharding.spec == P("shard")
+    np.testing.assert_allclose(float(aux["loss"]), float(aux1["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(p["w"]), np.asarray(p1["w"]), rtol=5e-4, atol=5e-5)
 
 
 def test_state_sharding_structure(mesh):
     opt = psgd.PSGD(preconditioner="lra", rank=2)
-    state = opt.init({"w": jnp.zeros((10,))}, jax.random.PRNGKey(0))
+    state = opt.init({"w": jnp.zeros((16,))}, jax.random.PRNGKey(0))
     sh = state_sharding(mesh, state)
     assert sh.precond.UV.spec == P(None, "shard")  # packed rank-major (2r, n)
     assert sh.precond.d.spec == P("shard")
@@ -267,32 +263,31 @@ def test_mesh_validation():
 
 
 def test_sharded_dense_over_cap_matches_single_device(mesh):
-    """dense at n > dense_upd.MAX_N on a mesh: Q replicates by policy
-    (row-sharding is useless for the row-sequential solve/cumsum and
-    GSPMD's cumsum partition hangs — parallel/policies.py) and the
-    gridded dense_big kernel runs per-device via replicated_call."""
-    from psgd_tf_tpu.ops import pallas as pallas_ops
+    """dense at n = 1600 on a mesh: Q replicates by policy (row-sharding
+    is useless for the row-sequential solve/cumsum and GSPMD's cumsum
+    partition hangs — parallel/policies.py) and every device runs the
+    whole update."""
     from psgd_tf_tpu.groups import dense
 
-    n = pallas_ops.dense_upd.MAX_N + 64
+    n = 1600
     key = jax.random.PRNGKey(11)
     state = dense.init(n, init_scale=0.1)
     v = jax.random.normal(jax.random.fold_in(key, 1), (n,))
     h = jax.random.normal(jax.random.fold_in(key, 2), (n,))
     g = jax.random.normal(jax.random.fold_in(key, 3), (n,))
 
-    ref_st, ref_out = jax.jit(
-        lambda st: dense.update_apply(st, v, h, g, step=0.05)
-    )(state)  # XLA path (pallas off on CPU, no mesh context)
+    def update_apply(st):
+        new = dense.update(st, v, h, step=0.05)
+        return new, dense.apply(new, g)
+
+    ref_st, ref_out = jax.jit(update_apply)(state)
 
     sh = precond_sharding(mesh, state)
     assert sh.Q.is_fully_replicated
 
-    with pallas_ops.sharding(mesh):
-        got_st, got_out = jax.jit(
-            lambda st: dense.update_apply(st, v, h, g, step=0.05),
-            in_shardings=(sh,), out_shardings=(sh, None),
-        )(jax.device_put(state, sh))
+    got_st, got_out = jax.jit(
+        update_apply, in_shardings=(sh,), out_shardings=(sh, None),
+    )(jax.device_put(state, sh))
     np.testing.assert_allclose(
         np.asarray(got_st.Q), np.asarray(ref_st.Q), rtol=2e-5, atol=1e-5
     )
@@ -402,14 +397,11 @@ def test_comm_model_tp_accounting():
 
 
 def test_sharded_step_with_stream_splu_state(mesh):
-    """A streaming-layout splu state (SpLUStreamState, r5) under the
-    sharded step: policies cover the new fields and the sharded update
-    falls back through the legacy math on the logical views."""
-    from unittest import mock
-
+    """A 960-parameter rank-4 splu state under the sharded step: the
+    policy shards its columns and tails, and three sharded steps match
+    the single-device replay."""
     from psgd_tf_tpu import PSGD
-    from psgd_tf_tpu.groups.splu import SpLUStreamState
-    from psgd_tf_tpu.ops.pallas import splu_one
+    from psgd_tf_tpu.groups.splu import SpLUState
     from psgd_tf_tpu.parallel import build_sharded_step, policies
 
     params = [0.3 * jax.random.normal(jax.random.PRNGKey(0), (40, 24))]
@@ -420,16 +412,15 @@ def test_sharded_step_with_stream_splu_state(mesh):
 
     opt = PSGD(preconditioner="splu", rank=4, lr_params=0.05,
                grad_clip_max_norm=1.0)
-    with mock.patch.object(splu_one, "fits", lambda r, n: False):
-        state = opt.init(params, jax.random.PRNGKey(1))
-    assert isinstance(state.precond, SpLUStreamState)
+    state = opt.init(params, jax.random.PRNGKey(1))
+    assert isinstance(state.precond, SpLUState)
+    assert state.precond.Lt.shape == (4, 960)
     sh = policies.state_sharding(mesh, state)
-    assert isinstance(sh.precond, SpLUStreamState)
+    assert sh.precond.Lt.spec == P(None, "shard")
+    assert sh.precond.l3.spec == P("shard")
 
     x = jax.random.normal(jax.random.PRNGKey(2), (8, 24))
     step = build_sharded_step(opt, loss, mesh, state, params, donate=False)
-    from functools import partial
-
     single = jax.jit(partial(opt.step, loss))
     p, s = params, state
     p1, s1 = params, state
@@ -442,3 +433,29 @@ def test_sharded_step_with_stream_splu_state(mesh):
         for a, b in zip(jax.tree_util.tree_leaves(p),
                         jax.tree_util.tree_leaves(p1)))
     assert np.isfinite(float(aux["loss"])) and rel < 1e-4, rel
+
+
+def test_state_of_undivided_width_replicates_and_steps(mesh, caplog):
+    """A flat state whose width the `shard` axis does not divide (n = 41
+    on 4 shards) cannot live sharded: its dimension replicates, with a
+    warning, and the sharded step still matches the single-device step."""
+    key = jax.random.PRNGKey(4)
+    params = {"w": jax.random.normal(key, (41,))}
+    x = jax.random.normal(jax.random.fold_in(key, 2), (16, 41))
+
+    def loss(p, x):
+        return jnp.sum((x @ p["w"]) ** 2)
+
+    for family in ("lra", "splu"):
+        opt = psgd.PSGD(preconditioner=family, rank=3, lr_params=0.05)
+        state = opt.init(params, jax.random.fold_in(key, 1))
+        caplog.clear()
+        sh = state_sharding(mesh, state)
+        assert all(s.is_fully_replicated for s in jax.tree_util.tree_leaves(sh.precond))
+        assert "replicates on every device" in caplog.text
+        k = jax.random.fold_in(key, 3)
+        step = build_sharded_step(opt, loss, mesh, state, params, donate=False)
+        p, _, aux = step(params, state, k, x)
+        p1, _, aux1 = jax.jit(partial(opt.step, loss))(params, state, k, x)
+        np.testing.assert_allclose(float(aux["loss"]), float(aux1["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(p["w"]), np.asarray(p1["w"]), rtol=5e-4, atol=5e-5)

@@ -17,10 +17,10 @@ e.g. https://storage.googleapis.com/cvdf-datasets/mnist/):
     PSGD_TF_TPU_MNIST_DIR=/data/mnist python -m pytest tests/test_real_mnist_parity.py -v
 
 The run matches the reference's budget: batch 64, 10 epochs of
-len(train)/64 steps, lr 0.1 annealed 0.01^(1/9) per epoch — ~45 min on a
-v5e chip. When the files are absent, the workload's hard-synthetic
-surrogate (data/mnist.synthetic_hard, criterion < 5%) carries quality
-coverage instead; see VALIDATION.md "Real-data parity".
+len(train)/64 steps, lr 0.1 annealed 0.01^(1/9) per epoch. When the
+files are absent, the workload's hard-synthetic surrogate
+(data/mnist.synthetic_hard, criterion < 5%) carries quality coverage
+instead.
 """
 import os
 

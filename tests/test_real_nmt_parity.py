@@ -145,7 +145,7 @@ def test_workload_real_data_path_end_to_end(corpus):
 )
 def test_nmt_real_corpus_full_budget():
     """The reference's full run (ref :236-241): 30k examples, batch 64,
-    lr 0.02, FD-Hvp, 10 epochs. ~1-2 h on a v5e chip. The reference
+    lr 0.02, FD-Hvp, 10 epochs. The reference
     publishes no NMT quality number — the bar here is the discriminating
     one documented in workloads.nmt_attention._run_real: val teacher-forced
     token accuracy > 0.5 (untrained ~unigram ceiling ~0.35)."""

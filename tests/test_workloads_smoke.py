@@ -1,7 +1,6 @@
 """Tiny-setting smoke runs of every workload module on the CPU mesh —
 catches API rot between the workload layer, models, data, and the
-optimizer without TPU-scale budgets (the real convergence/quality runs
-live in VALIDATION.md)."""
+optimizer without full-size budgets."""
 import jax.numpy as jnp
 
 from psgd_tf_tpu.models import nmt
@@ -51,9 +50,17 @@ def test_nmt_attention_smoke():
     assert r["success"] is False  # 3 steps cannot hit the 0.75 bar
 
 
+def test_nmt_attention_unequal_vocabs_stay_finite():
+    """Source and target vocabularies of different sizes (the reference's
+    9414 / 4935): every synthetic token id fits both, so the loss is
+    finite from the first step."""
+    cfg = nmt.Config(vocab_src=40, vocab_tgt=24, embed=8, units=12, attn=4)
+    r = nmt_attention.run(steps=2, batch_size=8, max_len=6, cfg=cfg)
+    assert jnp.isfinite(r["first_loss"]) and jnp.isfinite(r["loss"])
+
+
 def test_nmt_attention_sharded_smoke():
-    """The workload's mesh path runs the full sharded step (fused kernels
-    via shard_map) end to end."""
+    """The workload's mesh path runs the full sharded step end to end."""
     from psgd_tf_tpu.parallel import make_mesh
 
     cfg = nmt.Config(vocab_src=16, vocab_tgt=16, embed=8, units=12, attn=4)
